@@ -1,0 +1,196 @@
+#!/usr/bin/env python3
+"""Record the JAX package's output digests for the PyTorch port's checks.
+
+Generates the two datasets the port is held to, runs the JAX CLI
+(`python -m vstrains_tpu.cli`) on each with JAX on the CPU, and writes
+`tests/data/torch_port_expected.json`:
+
+  * "synth": the verify-recipe dataset of `vstrains_tpu.evals.synth`
+    (3 strains, 3 bubbles, 400 pairs per strain, seed 77);
+  * "hiv": the full-size 5-strain HIV labmix shape of
+    `vstrains_tpu.evals.hivsim.make_hiv_dataset(seed=0)` (773 nodes,
+    388,928 pairs of 250 bp).
+
+Both generators run in a child process with PYTHONHASHSEED=0:
+`hivsim._build_unitigs` numbers its unitigs in the iteration order of a
+set of strings, which decides the order of contigs.paths, so the HIV
+dataset is reproducible only under a fixed hash seed.
+
+Each entry holds the generator call, the sha256 of every input file, the
+sha256 of the compared outputs, the CLI arguments (paths relative to the
+dataset directory and the output directory), the planted haplotypes'
+digest and, for HIV, the per-strain NGA50 of the JAX output.
+`chip_smoke.py` regenerates each dataset with the port's own generator
+copies, checks the input digests first (a generator mismatch is then
+told apart from a port fault), runs the port CLI and compares the output
+digests.
+
+Usage:  JAX_PLATFORMS=cpu python tools/torch_port_expect.py [--workdir DIR]
+        [--only synth|hiv]
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT_JSON = os.path.join(REPO, "tests", "data", "torch_port_expected.json")
+
+INPUT_FILES = ("assembly_graph_after_simplification.gfa", "contigs.paths",
+               "reads_1.fastq", "reads_2.fastq")
+OUTPUT_FILES = ("aln/pe_info", "aln/st_info", "gfa/split_graph_final.gfa",
+                "strain.fasta", "strain.paths")
+
+SYNTH_KW = dict(num_strains=3, num_bubbles=3, pairs_per_strain=400,
+                abundances=[40.0, 70.0, 100.0], contig_mode="split",
+                error_rate=0.003, seed=77)
+SYNTH_BATCH = 512
+HIV_KW = dict(seed=0)
+HIV_BATCH = 16384
+
+
+def sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for chunk in iter(lambda: fh.read(1 << 20), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def haplotypes_digest(haps) -> str:
+    """Order-free digest of a set of sequences."""
+    return hashlib.sha256("\n".join(sorted(haps)).encode()).hexdigest()
+
+
+def cli_args(data_dir: str, out_dir: str, batch: int):
+    return ["-a", "spades",
+            "-g", os.path.join(data_dir, INPUT_FILES[0]),
+            "-p", os.path.join(data_dir, INPUT_FILES[1]),
+            "-fwd", os.path.join(data_dir, INPUT_FILES[2]),
+            "-rve", os.path.join(data_dir, INPUT_FILES[3]),
+            "-o", out_dir, "--pe-batch-size", str(batch)]
+
+
+_GEN_CODE = """
+import json, sys
+import vstrains_tpu.evals.{mod} as m
+ds = getattr(m, sys.argv[1])(sys.argv[2], **json.loads(sys.argv[3]))
+haps = ds.true_haplotypes
+print(json.dumps({{"haplotypes": sorted(haps.values() if isinstance(haps, dict)
+                                        else haps),
+                   "stats": getattr(ds, "stats", None),
+                   "n_pairs": getattr(ds, "n_pairs", None)}}))
+"""
+
+
+def _env():
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONHASHSEED="0")
+    env["PYTHONPATH"] = REPO + (os.pathsep + env["PYTHONPATH"]
+                                if env.get("PYTHONPATH") else "")
+    return env
+
+
+def generate(mod: str, fn: str, data_dir: str, kwargs: dict) -> dict:
+    """Run a dataset generator in a child process under
+    PYTHONHASHSEED=0; returns its haplotypes, stats and pair count."""
+    r = subprocess.run([sys.executable, "-c",
+                        _GEN_CODE.format(mod=mod), fn, data_dir,
+                        json.dumps(kwargs)],
+                       env=_env(), capture_output=True, text=True)
+    if r.returncode != 0:
+        raise SystemExit(f"{mod}.{fn} failed:\n{r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def _record(name, gen_call, data_dir, out_dir, batch, haps, extra):
+    argv = cli_args(data_dir, out_dir, batch)
+    env = _env()
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "vstrains_tpu.cli", *argv],
+                       env=env, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise SystemExit(f"JAX CLI failed on {name}:\n{r.stdout[-3000:]}"
+                         f"\n{r.stderr[-3000:]}")
+    print(f"# {name}: JAX CLI {time.time() - t0:.1f}s", file=sys.stderr)
+    rec = {
+        "generator": gen_call,
+        "inputs": {f: sha256_file(os.path.join(data_dir, f))
+                   for f in INPUT_FILES},
+        "outputs": {f: sha256_file(os.path.join(out_dir, f))
+                    for f in OUTPUT_FILES},
+        "cli": [a.replace(data_dir, "{data}").replace(out_dir, "{out}")
+                for a in argv],
+        "haplotypes_sha256": haplotypes_digest(haps),
+    }
+    rec.update(extra(out_dir) if extra else {})
+    return rec
+
+
+def record_synth(workdir: str) -> dict:
+    data_dir = os.path.join(workdir, "synth_data")
+    ds = generate("synth", "make_dataset", data_dir, SYNTH_KW)
+    return _record("synth", {"module": "evals.synth.make_dataset",
+                             "kwargs": SYNTH_KW},
+                   data_dir, os.path.join(workdir, "synth_out"),
+                   SYNTH_BATCH, ds["haplotypes"], None)
+
+
+def nga50_of(out_dir: str, truth_path: str) -> dict:
+    from vstrains_tpu.evals.nga50 import load_fasta, nga50_report
+    rep = nga50_report(load_fasta(os.path.join(out_dir, "strain.fasta")),
+                       load_fasta(truth_path), k=31, min_block=500)
+    rep.pop("_aggregate")
+    return {r: v["nga50"] for r, v in sorted(rep.items())}
+
+
+def record_hiv(workdir: str) -> dict:
+    data_dir = os.path.join(workdir, "hiv_data")
+    ds = generate("hivsim", "make_hiv_dataset", data_dir, HIV_KW)
+    truth = os.path.join(data_dir, "true_strains.fasta")
+    rec = _record("hiv", {"module": "evals.hivsim.make_hiv_dataset",
+                          "kwargs": HIV_KW},
+                  data_dir, os.path.join(workdir, "hiv_out"), HIV_BATCH,
+                  ds["haplotypes"],
+                  lambda out: {"nga50": nga50_of(out, truth)})
+    rec["inputs"]["true_strains.fasta"] = sha256_file(truth)
+    rec["graph"] = ds["stats"]
+    rec["read_pairs"] = ds["n_pairs"]
+    return rec
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workdir", default=None,
+                    help="where datasets and outputs go [default: a "
+                         "fresh temporary directory]")
+    ap.add_argument("--only", choices=["synth", "hiv"], default=None)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, REPO)
+    workdir = args.workdir or tempfile.mkdtemp(prefix="torch_port_expect_")
+    os.makedirs(workdir, exist_ok=True)
+    rec = {}
+    if os.path.exists(OUT_JSON):
+        with open(OUT_JSON) as fh:
+            rec = json.load(fh)
+    if args.only in (None, "synth"):
+        rec["synth"] = record_synth(workdir)
+    if args.only in (None, "hiv"):
+        rec["hiv"] = record_hiv(workdir)
+    rec["compared_outputs"] = list(OUTPUT_FILES)
+    rec["recorded_with"] = "vstrains_tpu CLI, JAX on the CPU"
+    with open(OUT_JSON, "w") as fh:
+        json.dump(rec, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    print(f"wrote {OUT_JSON}", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,307 @@
+"""The PE engine's three hand-written CUDA kernels, each beside its plain
+PyTorch version.
+
+  * window_hashes_wire / window_hashes_bytes: csrc/window_hashes.cu,
+    replacing pallas_kernels.py::window_hashes_pallas;
+  * stats_accum: csrc/stats_accum.cu, replacing
+    pallas_kernels.py::stats_accum_pallas;
+  * pair_counts: csrc/pair_counts.cu, replacing
+    pallas_kernels.py::pair_matmuls_pallas.
+
+A wrapper takes its plain version only when its tensors lie on the CPU
+(the CPU tests, `--device cpu`). On a CUDA tensor it launches the kernel,
+or raises: there is no fallback. Every launch adds one to the kernel's
+entry in LAUNCHES, so a run can show that it went through the kernels;
+the plain versions (`*_plain`) never count.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict
+
+import numpy as np
+import torch
+
+from vstrains_tpu_torch.core.seq import (HASH_MULT_1, HASH_MULT_2,
+                                         _mult_pows, prefix_hash_weights)
+
+INF = 2**31 - 1
+_M32 = 0xFFFFFFFF
+
+# kernel name -> launches since the last reset_launches()
+LAUNCHES: Dict[str, int] = {"window_hashes": 0, "stats_accum": 0,
+                            "pair_counts": 0}
+
+# what chip_smoke.py reports for each kernel
+KERNELS = [
+    {"name": "window_hashes", "route": "cuda",
+     "source": "vstrains_tpu_torch/csrc/window_hashes.cu",
+     "replaces": "vstrains_tpu/ops/pallas_kernels.py:63"},
+    {"name": "stats_accum", "route": "cuda",
+     "source": "vstrains_tpu_torch/csrc/stats_accum.cu",
+     "replaces": "vstrains_tpu/ops/pallas_kernels.py:154"},
+    {"name": "pair_counts", "route": "cuda",
+     "source": "vstrains_tpu_torch/csrc/pair_counts.cu",
+     "replaces": "vstrains_tpu/ops/pallas_kernels.py:267"},
+]
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# --------------------------------------------------------------------------
+# plumbing
+# --------------------------------------------------------------------------
+
+def _lib():
+    from vstrains_tpu_torch.ops import _build
+    return _build.load()
+
+
+def _on_cuda(*tensors) -> bool:
+    """True when every tensor is on CUDA, False when every one is on the
+    CPU; mixed or other devices raise."""
+    types = {t.device.type for t in tensors}
+    if types == {"cpu"}:
+        return False
+    if types == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return True
+    raise ValueError(f"tensors on {sorted(str(t.device) for t in tensors)}:"
+                     " expected all on the CPU or all on one CUDA device")
+
+
+def _expect(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {ndim}-D {dtype} "
+                         f"tensor, got {t.dtype} {tuple(t.shape)} "
+                         f"contiguous={t.is_contiguous()}")
+
+
+def _launch(name: str, fn, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        text = _lib().vt_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {text} "
+                           f"({err})")
+    LAUNCHES[name] += 1
+
+
+@functools.lru_cache(maxsize=16)
+def _hash_pows(split_len: int, device: str) -> torch.Tensor:
+    """uint32 bits [2, L]: row d holds M_d^(L-1-i), i = 0..L-1."""
+    pows = np.stack([_mult_pows(HASH_MULT_1, split_len)[::-1],
+                     _mult_pows(HASH_MULT_2, split_len)[::-1]])
+    return torch.from_numpy(
+        np.ascontiguousarray(pows).view(np.int32)).to(device)
+
+
+# --------------------------------------------------------------------------
+# window hashes (csrc/window_hashes.cu)
+# --------------------------------------------------------------------------
+
+def wire_width(T: int) -> int:
+    return 2 * (-(-T // 4)) + 4
+
+
+def wire_lens(wire: torch.Tensor) -> torch.Tensor:
+    """Stacked (2B,) int32 read lengths of a wire batch (forward reads
+    first), the u16s in each row's last four bytes."""
+    w = wire.to(torch.int32)
+    return torch.cat([w[:, -4] | (w[:, -3] << 8), w[:, -2] | (w[:, -1] << 8)])
+
+
+def unpack_wire_plain(wire: torch.Tensor, T: int):
+    """Inverse of pe_infer._pack_wire_np -> stacked ((2B, T) uint8 codes,
+    (2B,) int32 lens); the torch form of the JAX package's _unpack_wire."""
+    B = wire.shape[0]
+    T4 = -(-T // 4)
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8,
+                          device=wire.device)
+
+    def unpack(packed):
+        c = (packed[:, :, None] >> shifts[None, None, :]) & 3
+        return c.reshape(B, 4 * T4)[:, :T]
+
+    codes = torch.cat([unpack(wire[:, :T4]), unpack(wire[:, T4:2 * T4])])
+    return codes.contiguous(), wire_lens(wire)
+
+
+def _mulmod32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a * b) mod 2^32 for int64 tensors holding values in [0, 2^32),
+    split so that no product leaves int64."""
+    lo = b & 0xFFFF
+    hi = b >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
+
+
+def _as_int32_bits(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the int32 with the same 32 bits."""
+    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
+
+
+def window_hashes_plain(codes: torch.Tensor, lens: torch.Tensor,
+                        split_len: int):
+    """The torch form of the JAX package's _device_window_hashes (the
+    prefix-sum factorization, core/seq.prefix_hash_weights) with the sign
+    bias applied: returns q1 = h1 ^ 0x80000000 and h2 as int32 [R, K],
+    and valid bool [R, K], K = T - split_len + 1."""
+    R, T = codes.shape
+    L = split_len
+    K = T - L + 1
+    dev = codes.device
+    c64 = codes.to(torch.int64)
+    bad = c64 >= 4
+    c = torch.where(bad, 0, c64) + 1
+    hs = []
+    for w, s in prefix_hash_weights(L, T):
+        wt = torch.from_numpy(w.astype(np.int64)).to(dev)
+        st = torch.from_numpy(s.astype(np.int64)).to(dev)
+        p = torch.cumsum(_mulmod32(c, wt[None, :]), dim=1)
+        p = torch.nn.functional.pad(p, (1, 0))
+        hs.append(_mulmod32((p[:, L:] - p[:, :K]) & _M32, st[None, :]))
+    nb = torch.nn.functional.pad(torch.cumsum(bad.to(torch.int32), dim=1),
+                                 (1, 0))
+    nbad = nb[:, L:] - nb[:, :K]
+    win = torch.arange(K, device=dev)
+    valid = ((win[None, :] + L) <= lens[:, None]) & (nbad == 0)
+    return (_as_int32_bits(hs[0] ^ 0x80000000), _as_int32_bits(hs[1]),
+            valid)
+
+
+def _hash_outputs(R: int, K: int, device):
+    return (torch.empty((R, K), dtype=torch.int32, device=device),
+            torch.empty((R, K), dtype=torch.int32, device=device),
+            torch.empty((R, K), dtype=torch.uint8, device=device))
+
+
+def window_hashes_wire(wire: torch.Tensor, T: int, split_len: int):
+    """Window hashes of a packed wire batch (uint8 [B, wire_width(T)]):
+    returns (q1, h2, valid) for the stacked (2B, K) end-batch."""
+    if not _on_cuda(wire):
+        codes, lens = unpack_wire_plain(wire, T)
+        return window_hashes_plain(codes, lens, split_len)
+    _expect(wire, "wire", torch.uint8, 2)
+    B, W = wire.shape
+    if W != wire_width(T):
+        raise ValueError(f"wire width {W} != {wire_width(T)} for T={T}")
+    K = T - split_len + 1
+    if K <= 0:
+        raise ValueError(f"read width {T} is shorter than a window")
+    q1, h2, valid = _hash_outputs(2 * B, K, wire.device)
+    pows = _hash_pows(split_len, str(wire.device))
+    _launch("window_hashes", _lib().vt_window_hashes_wire, wire.device,
+            wire.data_ptr(), B, W, T, split_len, pows.data_ptr(),
+            q1.data_ptr(), h2.data_ptr(), valid.data_ptr())
+    return q1, h2, valid.view(torch.bool)
+
+
+def window_hashes_bytes(codes: torch.Tensor, lens: torch.Tensor,
+                        split_len: int):
+    """Window hashes of byte codes (uint8 [R, T], codes >= 4 invalidate
+    their windows) and int32 lengths [R]: returns (q1, h2, valid)."""
+    if not _on_cuda(codes, lens):
+        return window_hashes_plain(codes, lens, split_len)
+    _expect(codes, "codes", torch.uint8, 2)
+    _expect(lens, "lens", torch.int32, 1)
+    R, T = codes.shape
+    if lens.shape[0] != R:
+        raise ValueError(f"lens has {lens.shape[0]} rows, codes {R}")
+    K = T - split_len + 1
+    if K <= 0:
+        raise ValueError(f"read width {T} is shorter than a window")
+    q1, h2, valid = _hash_outputs(R, K, codes.device)
+    pows = _hash_pows(split_len, str(codes.device))
+    _launch("window_hashes", _lib().vt_window_hashes_bytes, codes.device,
+            codes.data_ptr(), lens.data_ptr(), R, T, split_len,
+            pows.data_ptr(), q1.data_ptr(), h2.data_ptr(), valid.data_ptr())
+    return q1, h2, valid.view(torch.bool)
+
+
+# --------------------------------------------------------------------------
+# per-(read, node) stats (csrc/stats_accum.cu)
+# --------------------------------------------------------------------------
+
+def stats_accum_plain(node_t: torch.Tensor, depth: int, num_nodes: int):
+    """scatter_add_ / scatter_reduce(amin) over a sentinel column, as the
+    JAX package's _slots_scatter_accum: (cnt, kmin) int32 [R, N]."""
+    R, C = node_t.shape
+    dev = node_t.device
+    idx = node_t.to(torch.int64)
+    kidx = (torch.arange(C, device=dev, dtype=torch.int32)
+            // depth).expand(R, C)
+    cnt = torch.zeros((R, num_nodes + 1), dtype=torch.int32, device=dev)
+    cnt.scatter_add_(1, idx, torch.ones_like(node_t, dtype=torch.int32))
+    kmin = torch.full((R, num_nodes + 1), INF, dtype=torch.int32,
+                      device=dev)
+    kmin.scatter_reduce_(1, idx, kidx, reduce="amin", include_self=True)
+    return cnt[:, :num_nodes], kmin[:, :num_nodes]
+
+
+def stats_accum_uses_shared(num_nodes: int) -> bool:
+    """Whether the kernel keeps a row's counters in shared memory (else
+    global atomics) — the branch chip_smoke.py exercises both sides of."""
+    return bool(_lib().vt_stats_accum_uses_shared(num_nodes))
+
+
+def stats_accum(node_t: torch.Tensor, depth: int, num_nodes: int):
+    """(cnt, kmin) int32 [R, N] from per-slot node ids int32 [R, C]
+    (slot j = window j // depth; ids outside [0, N) are misses)."""
+    if not _on_cuda(node_t):
+        return stats_accum_plain(node_t, depth, num_nodes)
+    _expect(node_t, "node_t", torch.int32, 2)
+    R, C = node_t.shape
+    cnt = torch.empty((R, num_nodes), dtype=torch.int32,
+                      device=node_t.device)
+    kmin = torch.empty_like(cnt)
+    _launch("stats_accum", _lib().vt_stats_accum, node_t.device,
+            node_t.data_ptr(), R, C, depth, num_nodes, cnt.data_ptr(),
+            kmin.data_ptr())
+    return cnt, kmin
+
+
+# --------------------------------------------------------------------------
+# pair counts (csrc/pair_counts.cu)
+# --------------------------------------------------------------------------
+
+def pair_counts_plain(f: torch.Tensor, r: torch.Tensor,
+                      acc_nm: torch.Tensor, acc_sm: torch.Tensor) -> None:
+    """acc_nm += f^T r ; acc_sm += triu(f^T f + r^T r), through float32
+    matmuls: exact, since every entry is at most 2B < 2^24."""
+    ff = f.to(torch.float32)
+    rf = r.to(torch.float32)
+    acc_nm += (ff.T @ rf).to(torch.int64)
+    acc_sm += torch.triu(ff.T @ ff + rf.T @ rf).to(torch.int64)
+
+
+def pair_counts(f: torch.Tensor, r: torch.Tensor, acc_nm: torch.Tensor,
+                acc_sm: torch.Tensor) -> None:
+    """Add one batch's link counts into the int64 [N, N] accumulators, in
+    place. f, r: 0/1 masks [B, N] (bool or uint8) of the forward and
+    reverse reads."""
+    if not _on_cuda(f, r, acc_nm, acc_sm):
+        pair_counts_plain(f, r, acc_nm, acc_sm)
+        return
+    if f.dtype == torch.bool:
+        f = f.view(torch.uint8)
+    if r.dtype == torch.bool:
+        r = r.view(torch.uint8)
+    _expect(f, "f", torch.uint8, 2)
+    _expect(r, "r", torch.uint8, 2)
+    _expect(acc_nm, "acc_nm", torch.int64, 2)
+    _expect(acc_sm, "acc_sm", torch.int64, 2)
+    B, N = f.shape
+    if r.shape != f.shape or acc_nm.shape != (N, N) \
+            or acc_sm.shape != (N, N):
+        raise ValueError(f"shapes f{tuple(f.shape)} r{tuple(r.shape)} "
+                         f"acc {tuple(acc_nm.shape)}/{tuple(acc_sm.shape)}")
+    # the kernel's bit-packed copies of f and r: [ceil(B/32), N] each
+    words = torch.empty(2 * (-(-B // 32)) * N, dtype=torch.int32,
+                        device=f.device)
+    _launch("pair_counts", _lib().vt_pair_counts, f.device, f.data_ptr(),
+            r.data_ptr(), B, N, words.data_ptr(), acc_nm.data_ptr(),
+            acc_sm.data_ptr())
