@@ -22,11 +22,27 @@ without the final result line):
      the strain set must equal the planted haplotypes and the output
      files the JAX package's bytes;
   5. the HIV dataset through the port CLI on cuda (--pe-batch-size
-     16384) with every kernel's launch count reset just before: outputs
-     byte-equal to the JAX package's, every kernel launched, stage times,
-     PE throughput and per-strain NGA50 printed.
-The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is {"ok": true, "device": {...}}.
+     16384, the dense PE engine) with every kernel's launch count reset
+     just before: outputs byte-equal to the JAX package's, the dense
+     engine's kernels launched, stage times, PE throughput and per-strain
+     NGA50 printed;
+  6. the same HIV dataset through the port CLI with --pe-batch-size
+     262144, which the dense/sparse memory rule routes to the sparse PE
+     engine: outputs byte-equal to the same JAX record (the two engines
+     give identical links), window_hashes and sort_rows launched,
+     stats_accum and pair_counts not; then window_hashes and sort_rows
+     against their plain versions at the shapes that run gave them (its
+     batch and depth read from its log, its first batch of reads);
+  7. the N = 50,000 cell (`bench.synth_workload`, 50,000 nodes of 200 bp,
+     1,048,576 pairs of 150 bp, seed 0) through the engine entry point
+     `infer_pe_links(stats_mode="auto")`: a checked run on the first
+     262,144 pairs whose `write_pe_files_sparse` files must equal the JAX
+     package's digests (it is also the warm-up); window_hashes and
+     sort_rows against their plain versions at that run's shapes, as in
+     6; then the timed run on all 1,048,576 pairs.
+The line before the last is a JSON object with each kernel's launches
+(each from the run of the path it belongs to), error and times; the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -91,11 +107,14 @@ def generate(mod: str, fn: str, data_dir: str, kwargs: dict) -> dict:
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
-def run_cli(rec: dict, data_dir: str, out_dir: str) -> float:
+def run_cli(rec: dict, data_dir: str, out_dir: str,
+            pe_batch: int = None) -> float:
     """The port CLI, in this process, as a user calls it, on cuda."""
     from vstrains_tpu_torch import cli
     argv = [a.replace("{data}", data_dir).replace("{out}", out_dir)
             for a in rec["cli"]] + ["--device", "cuda"]
+    if pe_batch is not None:
+        argv[argv.index("--pe-batch-size") + 1] = str(pe_batch)
     shutil.rmtree(out_dir, ignore_errors=True)
     t0 = time.time()
     rc = cli.main(argv)
@@ -203,7 +222,70 @@ def ragged_shapes() -> None:
         ck.pair_counts_plain(f, r, acc[2], acc[3])
         max_abs_err(f"pair_counts B={B} N={N}", acc[:2], acc[2:])
         n += 1
+    for R in (1, 37):
+        for C in (1, 5, 100, 513):
+            key, val = sort_operands(rng, R, C)
+            max_abs_err(f"sort_rows R={R} C={C}", ck.sort_rows(key, val),
+                        ck.sort_rows_plain(key, val))
+            max_abs_err(f"sort_rows key-only R={R} C={C}",
+                        [ck.sort_rows(key)], [ck.sort_rows_plain(key)])
+            n += 2
     say(f"ragged shapes: {n} kernel checks bit-equal to plain")
+
+
+def sort_operands(rng, R: int, C: int):
+    """int32 (key, val) on the card over the whole signed range, with
+    repeated keys and INT32_MAX keys and values (which must sort before
+    the kernel's padding)."""
+    import numpy as np
+    import torch
+    key = rng.randint(-2**31, 2**31, (R, C)).astype(np.int32)
+    key[rng.rand(R, C) < 0.3] = 2**31 - 1
+    key[rng.rand(R, C) < 0.1] = -3
+    val = rng.randint(-2**31, 2**31, (R, C)).astype(np.int32)
+    val[rng.rand(R, C) < 0.1] = 2**31 - 1
+    return (torch.from_numpy(key).cuda(), torch.from_numpy(val).cuda())
+
+
+def sort_rows_phase(rng) -> None:
+    """sort_rows against its plain version in both of its branches, at
+    the widest row a cap retry reaches on HIV, past the shared-memory
+    branch's limit, and key-only on the transpose (the column sort of
+    tools/colsort_proto.py). The sparse tail's own shapes are checked
+    where each sparse path runs (sparse_path_kernels)."""
+    import numpy as np
+    import torch
+
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    for R, C, what, iters in ((8192, 201 * 16, "HIV cap retry, D=16", 10),
+                              (2048, 10000, "past the shared branch", 10)):
+        key, val = sort_operands(rng, R, C)
+        branch = "shared" if ck.sort_rows_uses_shared(C) else "global"
+        if (branch == "global") != (what == "past the shared branch"):
+            raise AssertionError(f"sort_rows C={C} took the {branch} branch")
+        compare(f"sort_rows ({what}, {branch} branch, R={R} C={C})",
+                lambda: ck.sort_rows(key, val),
+                lambda: ck.sort_rows_plain(key, val), iters=iters)
+    x = torch.from_numpy(np.random.RandomState(5).randint(
+        -2**31, 2**31, (2048, 2048)).astype(np.int32)).cuda()
+    compare("sort_rows (key-only on the transpose, L=W=2048, vs "
+            "torch.sort(dim=0))",
+            lambda: [ck.sort_rows(x.T.contiguous()).T],
+            lambda: [torch.sort(x, dim=0).values], iters=10)
+
+
+def read_gfa(gfa_path: str):
+    """The graph's segment sequences and the PE windows' length (the
+    overlap k plus one)."""
+    seqs, overlap = [], None
+    with open(gfa_path) as fh:
+        for line in fh:
+            f = line.rstrip("\n").split("\t")
+            if f[0] == "S":
+                seqs.append(f[2])
+            elif f[0] == "L" and overlap is None:
+                overlap = int(f[5][:-1])
+    return seqs, overlap + 1
 
 
 def kernel_phase(gfa_path: str) -> dict:
@@ -215,15 +297,7 @@ def kernel_phase(gfa_path: str) -> dict:
 
     # the HIV run's shapes: 2B = 32,768 stacked reads, T = 256 (250 bp
     # padded to 32), windows of k+1, N nodes, D duplicate ranks
-    seqs, overlap = [], None
-    with open(gfa_path) as fh:
-        for line in fh:
-            f = line.rstrip("\n").split("\t")
-            if f[0] == "S":
-                seqs.append(f[2])
-            elif f[0] == "L" and overlap is None:
-                overlap = int(f[5][:-1])
-    L = overlap + 1
+    seqs, L = read_gfa(gfa_path)
     N = len(seqs)
     D = min(P.build_kmer_table(seqs, L).max_dup, P._SORTFILL_MAX_DUP)
     B, T = 16384, 256
@@ -297,7 +371,213 @@ def kernel_phase(gfa_path: str) -> dict:
     res["pair_counts"] = compare(
         f"pair_counts (B={B}, N={N})",
         lambda: pairs(ck.pair_counts), lambda: pairs(ck.pair_counts_plain))
+    sort_rows_phase(rng)
     return res
+
+
+def count_launches(name: str, run, expect_on, expect_off=()) -> dict:
+    """Run one path with every launch count set to 0 just before and
+    read just after; fail unless each kernel of the path launched and
+    none of `expect_off` did."""
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    ck.reset_launches()
+    out = run()
+    launches = dict(ck.LAUNCHES)
+    say(f"{name}: kernel launches {launches}")
+    missing = [k for k in expect_on if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"{name}: kernels never launched on this "
+                             f"path: {missing}")
+    extra = [k for k in expect_off if launches[k] != 0]
+    if extra:
+        raise AssertionError(f"{name}: kernels of another path launched: "
+                             f"{extra}")
+    return launches, out
+
+
+_SPARSE_LINE = "sparse PE stats path: "
+
+
+def sparse_run_shape(lines) -> dict:
+    """{"N", "cap", "depth", "batch"} of the sparse engine's last pass,
+    from its log line; raises when the sparse engine did not run."""
+    shape = None
+    for line in lines:
+        if _SPARSE_LINE in line:
+            shape = {k: int(v) for k, v in (
+                kv.split("=") for kv in
+                line.split(_SPARSE_LINE)[1].strip().split(", "))}
+    if shape is None:
+        raise AssertionError("the sparse PE stats path did not run")
+    return shape
+
+
+def sparse_path_kernels(what: str, reads, split_len: int, shape: dict,
+                        rng) -> dict:
+    """The sparse path's kernels against their plain versions at the
+    shapes that path gave them: window_hashes on the first batch the
+    engine fed it (the same batching and feed, bit-equal), sort_rows on
+    rows of K * depth slots for each of the batch's 2B read ends, with
+    (key, val) as the compaction sorts and key-only as the packed
+    `_row_run_stats` sorts. Returns the (key, val) sort's comparison."""
+    import torch
+
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    from vstrains_tpu_torch.ops import pe_infer as P
+
+    batch, depth = shape["batch"], shape["depth"]
+    T = max(reads.fwd_codes.shape[1], reads.rve_codes.shape[1])
+    K = T - split_len + 1
+    kind, payload = next(P._wire_batches(reads, batch))
+    if kind == "wire":
+        wire = torch.from_numpy(payload).cuda()
+        compare(f"window_hashes ({what}, wire feed, 2B={2 * batch} T={T} "
+                f"split_len={split_len})",
+                lambda: ck.window_hashes_wire(wire, T, split_len),
+                lambda: ck.window_hashes_plain(*ck.unpack_wire_plain(wire, T),
+                                               split_len), iters=5)
+        del wire
+    else:
+        codes, lens = (torch.from_numpy(x).cuda()
+                       for x in P._stack_ends_np(*payload))
+        compare(f"window_hashes ({what}, byte feed, 2B={2 * batch} T={T} "
+                f"split_len={split_len})",
+                lambda: ck.window_hashes_bytes(codes, lens, split_len),
+                lambda: ck.window_hashes_plain(codes, lens, split_len),
+                iters=5)
+        del codes, lens
+    key, val = sort_operands(rng, 2 * batch, K * depth)
+    res = compare(f"sort_rows ({what} sparse tail, R={2 * batch} "
+                  f"C={K * depth})", lambda: ck.sort_rows(key, val),
+                  lambda: ck.sort_rows_plain(key, val))
+    compare(f"sort_rows ({what} sparse tail, key-only, R={2 * batch} "
+            f"C={K * depth})", lambda: [ck.sort_rows(key)],
+            lambda: [ck.sort_rows_plain(key)])
+    return res
+
+
+def hiv_sparse_phase(hiv: dict, hiv_data: str, rng) -> dict:
+    """The HIV CLI at --pe-batch-size 262144: the port's own cutover
+    (dense_budget_rows) sends the PE stage (N >= 238 nodes) to the sparse
+    engine. Then the path's kernels at the shapes it gave them."""
+    from vstrains_tpu_torch.core.fastq import load_read_pairs
+    from vstrains_tpu_torch.ops import pe_infer as P
+
+    out = os.path.join(WORK, "hiv_sparse_out")
+    pe_batch = 262144
+    launches, wall = count_launches(
+        "hiv sparse", lambda: run_cli(hiv, hiv_data, out, pe_batch=pe_batch),
+        ("window_hashes", "sort_rows"), ("stats_accum", "pair_counts"))
+    with open(os.path.join(out, "vstrains.log")) as fh:
+        shape = sparse_run_shape(fh)
+    say(f"hiv sparse: sparse PE stats path ran: {json.dumps(shape)}")
+    if shape["N"] < 238 or not pe_batch > P.dense_budget_rows(shape["N"]):
+        raise AssertionError(f"hiv sparse: N={shape['N']} should be >= 238 "
+                             f"and past the dense budget")
+    check_digests("HIV output (sparse engine)", out, hiv["outputs"])
+    with open(os.path.join(out, "timings.json")) as fh:
+        stages = {s["stage"]: s["seconds"]
+                  for s in json.load(fh)["stages"]}
+    say(f"hiv sparse: port CLI {wall:.2f} s, PE stage "
+        f"{stages['pe_inference']:.3f} s; outputs byte-equal to the JAX "
+        "record")
+    # the pipeline's own load of the reads, as the PE stage ran it
+    _, split_len = read_gfa(os.path.join(
+        hiv_data, "assembly_graph_after_simplification.gfa"))
+    reads = load_read_pairs(os.path.join(hiv_data, "reads_1.fastq"),
+                            os.path.join(hiv_data, "reads_2.fastq"),
+                            split_len, pad_to_multiple=32)
+    sparse_path_kernels("HIV", reads, split_len, shape, rng)
+    return launches
+
+
+def cell_50k(rec: dict, rng) -> dict:
+    """The N = 50,000 cell through infer_pe_links(stats_mode="auto")."""
+    import logging
+
+    import torch
+
+    from bench import synth_workload
+    from vstrains_tpu_torch.core.fastq import ReadPairBatch, _pack
+    from vstrains_tpu_torch.ops import pe_infer as P
+
+    t0 = time.time()
+    refs, fwd, rve, k = synth_workload(**rec["generator"]["kwargs"])
+    fc, fl = _pack([x.encode() for x in fwd])
+    rc, rl = _pack([x.encode() for x in rve])
+    del fwd, rve
+    ids = [str(i) for i in range(len(refs))]
+    n_all = len(fl)
+    say(f"50k cell: {len(refs)} nodes, {n_all} pairs generated in "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    table = P.build_kmer_table(refs, k + 1)
+    build_s = time.time() - t0
+    N = table.num_nodes
+    budget_rows = P.dense_budget_rows(N)
+    batch = rec["batch_size"]
+    if not batch > budget_rows:
+        raise AssertionError(f"50k: dense budget {budget_rows} rows would "
+                             f"keep batch {batch} dense")
+    say(f"50k cell: table {table.num_entries} entries, max_dup "
+        f"{table.max_dup}, built in {build_s:.3f} s; dense budget "
+        f"{budget_rows} rows < batch {batch}: auto routes to sparse")
+
+    log = logging.getLogger("chip_smoke.r50k")
+    messages = []
+
+    class _Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    log.addHandler(_Keep())
+    log.setLevel(logging.INFO)
+
+    def engine(n):
+        reads = ReadPairBatch(fc[:n], fl[:n], rc[:n], rl[:n], 0, 0, n)
+        torch.cuda.synchronize()
+        t = time.time()
+        res = P.infer_pe_links(ids, refs, reads, k, batch_size=batch,
+                               stats_mode="auto", table=table, logger=log,
+                               device="cuda")
+        torch.cuda.synchronize()
+        return res, time.time() - t
+
+    # (a) the checked run, which is also the timed run's warm-up
+    n_chk = rec["checked_pairs"]
+    launches, (res, sec) = count_launches(
+        "50k checked run", lambda: engine(n_chk),
+        ("window_hashes", "sort_rows"), ("stats_accum", "pair_counts"))
+    if not isinstance(res, P.PESparseResult):
+        raise AssertionError("50k: auto routing did not pick the sparse "
+                             "engine")
+    out = os.path.join(WORK, "r50k_out")
+    os.makedirs(out, exist_ok=True)
+    P.write_pe_files_sparse(res, os.path.join(out, "pe_info"),
+                            os.path.join(out, "st_info"))
+    check_digests("50k checked run", out, rec["outputs"])
+    shape = sparse_run_shape(messages)
+    say(f"50k checked run: {n_chk} pairs in {sec:.3f} s; pe_info/st_info "
+        f"byte-equal to the JAX record; sparse path {json.dumps(shape)}")
+    # the path's kernels at the shapes it gave them
+    sort_res = sparse_path_kernels(
+        "N=50k", ReadPairBatch(fc, fl, rc, rl, 0, 0, n_all), k + 1, shape,
+        rng)
+    # (b) the timed run on every pair
+    torch.cuda.reset_peak_memory_stats()
+    messages.clear()
+    res, sec = engine(n_all)
+    retries = [m for m in messages if "overflowed" in m]
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    batch = sparse_run_shape(messages)["batch"]
+    if not isinstance(res, P.PESparseResult) or not res.pair_counts.size:
+        raise AssertionError("50k timed run: no sparse links")
+    say(f"50k timed run: {n_all} pairs in {sec:.4f} s = {n_all / sec:.1f} "
+        f"pairs/s; table build {build_s:.4f} s; {-(-n_all // batch)} "
+        f"batches of {batch}; peak device memory {peak:.0f} MiB; cap retries "
+        f"{len(retries)}; {res.pair_keys.size} PE links, "
+        f"{res.short_keys.size} same-end links")
+    return {"sort_rows": sort_res, "launches": launches}
 
 
 def main() -> int:
@@ -366,16 +646,11 @@ def main() -> int:
     # 5. HIV slice: the main path, counted
     hiv_out = os.path.join(WORK, "hiv_out")
     torch.cuda.reset_peak_memory_stats()
-    ck.reset_launches()
-    wall = run_cli(hiv, hiv_data, hiv_out)
-    launches = dict(ck.LAUNCHES)
-    say(f"hiv: port CLI {wall:.2f} s; kernel launches {launches}; peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 2**20:.0f} "
-        "MiB")
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
+    launches, wall = count_launches(
+        "hiv dense", lambda: run_cli(hiv, hiv_data, hiv_out),
+        ("window_hashes", "stats_accum", "pair_counts"), ("sort_rows",))
+    say(f"hiv: port CLI {wall:.2f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     check_digests("HIV output", hiv_out, hiv["outputs"])
     with open(os.path.join(hiv_out, "timings.json")) as fh:
         timings = json.load(fh)
@@ -399,6 +674,16 @@ def main() -> int:
         raise AssertionError(f"NGA50 {nga} != JAX record {hiv['nga50']}")
     say(f"hiv: outputs byte-equal to the JAX record; NGA50 per strain "
         f"{json.dumps(nga)}")
+
+    # 6. HIV through the sparse engine
+    import numpy as np
+    sparse_launches = hiv_sparse_phase(hiv, hiv_data,
+                                       np.random.RandomState(2))
+
+    # 7. the N = 50,000 cell
+    c50 = cell_50k(expected["r50k"], np.random.RandomState(3))
+    kres["sort_rows"] = c50["sort_rows"]
+    launches["sort_rows"] = sparse_launches["sort_rows"]
 
     kernels = []
     for meta in ck.KERNELS:

@@ -151,8 +151,11 @@ def test_cpu_wrappers_do_not_count_launches():
     ck.window_hashes_bytes(torch.from_numpy(codes), torch.from_numpy(lens),
                            7)
     ck.stats_accum(torch.from_numpy(_node_slots(rng, 4, 5, 2, 9)), 2, 9)
+    key = torch.from_numpy(_node_slots(rng, 4, 5, 2, 9))
+    ck.sort_rows(key, key.clone())
+    ck.sort_rows(key)
     assert ck.LAUNCHES == {"window_hashes": 0, "stats_accum": 0,
-                           "pair_counts": 0}
+                           "pair_counts": 0, "sort_rows": 0}
     assert [k["name"] for k in ck.KERNELS] == list(ck.LAUNCHES)
 
 
@@ -171,3 +174,8 @@ def test_non_cpu_tensors_never_fall_back():
         ck.pair_counts(torch.zeros((2, 3), dtype=torch.uint8),
                        torch.zeros((2, 3), dtype=torch.uint8,
                                    device="meta"), acc, acc)
+    key = torch.empty((4, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        ck.sort_rows(key)
+    with pytest.raises(ValueError):
+        ck.sort_rows(key, torch.zeros((4, 8), dtype=torch.int32))

@@ -273,7 +273,9 @@ def test_pe_files_and_stores_match_jax(tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(stats_mode="sparse"), "sparse PE engine"),
+    # the JAX sparse engine serves an explicit 'sortfill' probe with its
+    # classic join
+    (dict(stats_mode="sparse", probe_mode="sortfill"), "classic sort join"),
     (dict(probe_mode="lookup"), "lookup"),
     (dict(probe_mode="searchsorted"), "searchsorted"),
     (dict(probe_mode="sortjoin"), "sortjoin"),

@@ -1,8 +1,16 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's PE engine spends its time, on one CUDA card,
-at the full-size HIV labmix shape (773 nodes, 388,928 pairs of 250 bp).
+at the full-size HIV labmix shape (773 nodes, 388,928 pairs of 250 bp),
+or at the N = 50,000 cell of chip_smoke.py (--r50k).
 
     python3 tools/torch_pe_profile.py [--out FILE.json] [--data DIR]
+        [--batch-size B] [--r50k]
+
+`--batch-size 262144` sends the HIV graph to the sparse engine (the
+dense/sparse memory rule); --r50k always takes it (`bench.synth_workload`
+with the record's generator arguments, all 1,048,576 pairs, batch
+16,384). For the sparse engine the record also sums its host-side
+profiler ranges (sparse.queue / sparse.wait / sparse.coo).
 
 Generates the dataset with the port's generator (child process under
 PYTHONHASHSEED=0) unless --data names one, loads the reads and builds
@@ -12,8 +20,9 @@ the k-mer table (both timed on the host clock), runs
   * times the host wire packing alone (`_wire_batches`),
   * runs it under torch.profiler (CPU + CUDA activity) and sums the
     device time by kernel; busy share = device kernel time / wall time.
-Finally it runs the port CLI on the dataset with --profile-dir, which
-checks that the pipeline's torch.profiler option writes its trace.
+Finally, for HIV, it runs the port CLI on the dataset with
+--profile-dir, which checks that the pipeline's torch.profiler option
+writes its trace.
 Prints one JSON object as the last line (and writes it to --out).
 Needs a CUDA card; on a machine without one it exits non-zero.
 """
@@ -64,6 +73,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--data", default=None)
     ap.add_argument("--batch-size", type=int, default=16384)
+    ap.add_argument("--r50k", action="store_true",
+                    help="profile the N = 50,000 cell instead of HIV")
     args = ap.parse_args(argv)
 
     import torch
@@ -71,29 +82,45 @@ def main(argv=None) -> int:
         raise SystemExit("torch_pe_profile: CUDA is not available")
     from torch.profiler import ProfilerActivity, profile
 
-    from vstrains_tpu_torch.core.fastq import load_read_pairs
+    from vstrains_tpu_torch.core.fastq import (ReadPairBatch, _pack,
+                                               load_read_pairs)
     from vstrains_tpu_torch.ops import pe_infer as P
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     work = os.path.join(REPO, "build", "pe_profile")
-    data = args.data or os.path.join(work, "hiv_data")
-    if not args.data:
+    if args.r50k:
+        from bench import synth_workload
+        with open(os.path.join(REPO, "tests", "data",
+                               "torch_port_expected.json")) as fh:
+            gen = json.load(fh)["r50k"]["generator"]["kwargs"]
         t0 = time.time()
-        _gen(data)
-        print(f"# dataset generated in {time.time() - t0:.1f} s",
-              file=sys.stderr)
-    ids, seqs, k = _graph(os.path.join(
-        data, "assembly_graph_after_simplification.gfa"))
-    rec = {"card": smi, "torch": torch.__version__, "nodes": len(ids),
+        seqs, fwd, rve, k = synth_workload(**gen)
+        fc, fl = _pack([x.encode() for x in fwd])
+        rc, rl = _pack([x.encode() for x in rve])
+        reads = ReadPairBatch(fc, fl, rc, rl, 0, 0, len(fl))
+        del fwd, rve
+        ids = [str(i) for i in range(len(seqs))]
+        load_s = time.time() - t0
+    else:
+        data = args.data or os.path.join(work, "hiv_data")
+        if not args.data:
+            t0 = time.time()
+            _gen(data)
+            print(f"# dataset generated in {time.time() - t0:.1f} s",
+                  file=sys.stderr)
+        ids, seqs, k = _graph(os.path.join(
+            data, "assembly_graph_after_simplification.gfa"))
+        t0 = time.time()
+        reads = load_read_pairs(os.path.join(data, "reads_1.fastq"),
+                                os.path.join(data, "reads_2.fastq"), k + 1,
+                                pad_to_multiple=32)
+        load_s = time.time() - t0
+    rec = {"card": smi, "torch": torch.__version__,
+           "cell": "r50k" if args.r50k else "hiv", "nodes": len(ids),
            "k": k, "batch_size": args.batch_size}
-
-    t0 = time.time()
-    reads = load_read_pairs(os.path.join(data, "reads_1.fastq"),
-                            os.path.join(data, "reads_2.fastq"), k + 1,
-                            pad_to_multiple=32)
-    rec["fastq_load_s"] = time.time() - t0
+    rec["fastq_load_s" if not args.r50k else "reads_made_s"] = load_s
     rec["pairs"] = reads.num_pairs
     t0 = time.time()
     table = P.build_kmer_table(seqs, k + 1)
@@ -135,6 +162,8 @@ def main(argv=None) -> int:
         # that launched them report the same time again
         if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
             continue
+        if evt.key.startswith("sparse."):
+            continue  # a host range's GPU span, not a kernel
         dt = _device_time_us(evt)
         if dt > 0:
             rows.append({"name": evt.key[:90], "count": evt.count,
@@ -145,7 +174,31 @@ def main(argv=None) -> int:
     rec["device_busy_s"] = busy
     rec["device_busy_share"] = busy / prof_wall if prof_wall else None
     rec["device_time_by_kernel"] = rows[:25]
+    host = {}
+    for evt in prof.key_averages():
+        if (evt.key.startswith("sparse.")
+                and str(getattr(evt, "device_type", "")).endswith("CPU")):
+            host[evt.key] = {"count": evt.count,
+                             "cpu_s": evt.cpu_time_total / 1e6}
+    if host:
+        rec["sparse_host_ranges"] = host
+    rc = 0
+    if not args.r50k:
+        rc = _cli_trace(rec, work, data, args.batch_size)
+    for x in rows[:25]:
+        print(f"{x['device_ms']:10.3f} ms  x{x['count']:<5d} {x['name']}")
+    line = json.dumps(rec)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as fh:
+            fh.write(line + "\n")
+    print(line)
+    return rc
 
+
+def _cli_trace(rec: dict, work: str, data: str, batch_size: int) -> int:
+    """The port CLI with --profile-dir: 0 when its trace was written."""
     from vstrains_tpu_torch import cli
     trace_dir = os.path.join(work, "trace")
     out_dir = os.path.join(work, "cli_out")
@@ -156,7 +209,7 @@ def main(argv=None) -> int:
         "-p", os.path.join(data, "contigs.paths"),
         "-fwd", os.path.join(data, "reads_1.fastq"),
         "-rve", os.path.join(data, "reads_2.fastq"), "-o", out_dir,
-        "--pe-batch-size", str(args.batch_size), "--device", "cuda",
+        "--pe-batch-size", str(batch_size), "--device", "cuda",
         "--profile-dir", trace_dir])
     trace = os.path.join(trace_dir, "pe_inference.trace.json")
     rec["cli_rc"] = rc
@@ -165,16 +218,6 @@ def main(argv=None) -> int:
     with open(os.path.join(out_dir, "timings.json")) as fh:
         rec["cli_stages_profiled_s"] = {
             s["stage"]: s["seconds"] for s in json.load(fh)["stages"]}
-
-    for x in rows[:25]:
-        print(f"{x['device_ms']:10.3f} ms  x{x['count']:<5d} {x['name']}")
-    line = json.dumps(rec)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
-                    exist_ok=True)
-        with open(args.out, "w") as fh:
-            fh.write(line + "\n")
-    print(line)
     return 0 if rc == 0 and rec["cli_trace_bytes"] else 1
 
 

@@ -9,7 +9,13 @@ Generates the two datasets the port is held to, runs the JAX CLI
     (3 strains, 3 bubbles, 400 pairs per strain, seed 77);
   * "hiv": the full-size 5-strain HIV labmix shape of
     `vstrains_tpu.evals.hivsim.make_hiv_dataset(seed=0)` (773 nodes,
-    388,928 pairs of 250 bp).
+    388,928 pairs of 250 bp);
+  * "r50k": the sparse engine's large-graph cell, `bench.synth_workload`
+    with 50,000 nodes of 200 bp and 1,048,576 read pairs of 150 bp (seed
+    0), packed as tools/realistic_50k.py packs it; the JAX engine
+    (`infer_pe_links`, stats_mode="auto", which routes this N to its
+    sparse engine) runs on the first 262,144 pairs in this process, and
+    the record holds the digests of its `write_pe_files_sparse` files.
 
 Both generators run in a child process with PYTHONHASHSEED=0:
 `hivsim._build_unitigs` numbers its unitigs in the iteration order of a
@@ -26,7 +32,7 @@ told apart from a port fault), runs the port CLI and compares the output
 digests.
 
 Usage:  JAX_PLATFORMS=cpu python tools/torch_port_expect.py [--workdir DIR]
-        [--only synth|hiv]
+        [--only synth|hiv|r50k]
 """
 
 from __future__ import annotations
@@ -54,6 +60,9 @@ SYNTH_KW = dict(num_strains=3, num_bubbles=3, pairs_per_strain=400,
 SYNTH_BATCH = 512
 HIV_KW = dict(seed=0)
 HIV_BATCH = 16384
+R50K_KW = dict(n_nodes=50000, node_len=200, n_pairs=1_048_576, seed=0)
+R50K_CHECKED_PAIRS = 262_144
+R50K_BATCH = 16384
 
 
 def sha256_file(path: str) -> str:
@@ -165,12 +174,60 @@ def record_hiv(workdir: str) -> dict:
     return rec
 
 
+def synth_50k_inputs(pairs: int):
+    """(ids, node sequences, k, packed (fc, fl, rc, rl)) of the first
+    `pairs` read pairs of the R50K_KW generation."""
+    from bench import synth_workload
+    from vstrains_tpu.core.fastq import _pack
+    refs, fwd, rve, k = synth_workload(**R50K_KW)
+    fc, fl = _pack([s.encode() for s in fwd[:pairs]])
+    rc, rl = _pack([s.encode() for s in rve[:pairs]])
+    return [str(i) for i in range(len(refs))], refs, k, (fc, fl, rc, rl)
+
+
+def record_r50k(workdir: str) -> dict:
+    import logging
+
+    from vstrains_tpu.core.fastq import ReadPairBatch
+    from vstrains_tpu.ops.pe_infer import (PESparseResult, infer_pe_links,
+                                           write_pe_files_sparse)
+    t0 = time.time()
+    ids, refs, k, (fc, fl, rc, rl) = synth_50k_inputs(R50K_CHECKED_PAIRS)
+    batch = ReadPairBatch(fc, fl, rc, rl, 0, 0, len(fl))
+    print(f"# r50k: inputs {time.time() - t0:.1f}s", file=sys.stderr)
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    t0 = time.time()
+    res = infer_pe_links(ids, refs, batch, k, batch_size=R50K_BATCH,
+                         stats_mode="auto")
+    if not isinstance(res, PESparseResult):
+        raise SystemExit("r50k: the JAX engine did not take its sparse "
+                         "path")
+    print(f"# r50k: JAX engine {time.time() - t0:.1f}s", file=sys.stderr)
+    out_dir = os.path.join(workdir, "r50k_out")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = [os.path.join(out_dir, f) for f in ("pe_info", "st_info")]
+    write_pe_files_sparse(res, *paths)
+    return {
+        "generator": {"function": "bench.synth_workload",
+                      "kwargs": R50K_KW,
+                      "packing": "vstrains_tpu.core.fastq._pack"},
+        "checked_pairs": R50K_CHECKED_PAIRS,
+        "batch_size": R50K_BATCH,
+        "kmer_size": k,
+        "writer": "write_pe_files_sparse",
+        "outputs": {os.path.basename(p): sha256_file(p) for p in paths},
+        "nonzero_pairs": {"pe_info": int((res.pair_counts != 0).sum()),
+                          "st_info": int((res.short_counts != 0).sum())},
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workdir", default=None,
                     help="where datasets and outputs go [default: a "
                          "fresh temporary directory]")
-    ap.add_argument("--only", choices=["synth", "hiv"], default=None)
+    ap.add_argument("--only", choices=["synth", "hiv", "r50k"],
+                    default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     workdir = args.workdir or tempfile.mkdtemp(prefix="torch_port_expect_")
@@ -183,8 +240,11 @@ def main(argv=None) -> int:
         rec["synth"] = record_synth(workdir)
     if args.only in (None, "hiv"):
         rec["hiv"] = record_hiv(workdir)
+    if args.only in (None, "r50k"):
+        rec["r50k"] = record_r50k(workdir)
     rec["compared_outputs"] = list(OUTPUT_FILES)
-    rec["recorded_with"] = "vstrains_tpu CLI, JAX on the CPU"
+    rec["recorded_with"] = ("vstrains_tpu on the CPU: the CLI for synth "
+                           "and hiv, infer_pe_links for r50k")
     with open(OUT_JSON, "w") as fh:
         json.dump(rec, fh, indent=1, sort_keys=True)
         fh.write("\n")

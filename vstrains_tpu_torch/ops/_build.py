@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (`vstrains_tpu_torch/csrc/`).
 
 nvcc compiles every `csrc/*.cu` into one shared library with a plain C
-interface, for sm_90a (Hopper), at first use:
+interface, for sm_90a (Hopper), at first use: one compiler process per
+source, all started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<source>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> <objs>
 
 The library lands in `build/vstrains_tpu_torch/` beside the package (a
 directory `.gitignore` lists), named by a hash of the sources and the
@@ -31,8 +33,9 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "vstrains_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -76,21 +79,40 @@ def build() -> dict:
     if os.path.exists(path):
         return {"path": path, "seconds": 0.0, "built": False, "log": ""}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.tmp{os.getpid()}.{threading.get_ident()}"
+    tag = f"{os.getpid()}.{threading.get_ident()}"
+    tmp = f"{path}.tmp{tag}"
     cu = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *cu]
+    objs = [f"{path}.{os.path.basename(p)}.{tag}.o" for p in cu]
+    nvcc = _nvcc()
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c",
+                                "-o", obj, src], stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True), src)
+             for src, obj in zip(cu, objs)]
+    logs, failed = [], []
+    for proc, src in procs:
+        out = proc.communicate()[0]
+        logs.append(f"== {os.path.basename(src)}\n{out}")
+        if proc.returncode != 0:
+            failed.append(os.path.basename(src))
+    if not failed:
+        link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append("link")
     seconds = time.time() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    log = "".join(logs)
+    if failed:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
     os.replace(tmp, path)
     with open(path + ".log", "w") as fh:
-        fh.write(" ".join(cmd) + "\n" + log)
+        fh.write(log)
     return {"path": path, "seconds": seconds, "built": True, "log": log}
 
 
@@ -102,6 +124,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "vt_stats_accum": [p, i64, i64, i64, i64, p, p, p],
         "vt_stats_accum_uses_shared": [i64],
         "vt_pair_counts": [p, p, i64, i64, p, p, p, p],
+        "vt_sort_rows": [p, p, i64, i64, p, p, p, p],
+        "vt_sort_rows_uses_shared": [i64],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

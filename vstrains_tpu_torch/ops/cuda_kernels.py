@@ -1,4 +1,4 @@
-"""The PE engine's three hand-written CUDA kernels, each beside its plain
+"""The PE engine's four hand-written CUDA kernels, each beside its plain
 PyTorch version.
 
   * window_hashes_wire / window_hashes_bytes: csrc/window_hashes.cu,
@@ -6,7 +6,11 @@ PyTorch version.
   * stats_accum: csrc/stats_accum.cu, replacing
     pallas_kernels.py::stats_accum_pallas;
   * pair_counts: csrc/pair_counts.cu, replacing
-    pallas_kernels.py::pair_matmuls_pallas.
+    pallas_kernels.py::pair_matmuls_pallas;
+  * sort_rows: csrc/sort_rows.cu, replacing
+    pallas_sort.py::sort_rows_pallas (the sparse engine's row sorts;
+    key-only on the transpose, the column sorter prototype
+    tools/colsort_proto.py::sort_cols_pallas).
 
 A wrapper takes its plain version only when its tensors lie on the CPU
 (the CPU tests, `--device cpu`). On a CUDA tensor it launches the kernel,
@@ -18,7 +22,7 @@ the plain versions (`*_plain`) never count.
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -31,7 +35,7 @@ _M32 = 0xFFFFFFFF
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"window_hashes": 0, "stats_accum": 0,
-                            "pair_counts": 0}
+                            "pair_counts": 0, "sort_rows": 0}
 
 # what chip_smoke.py reports for each kernel
 KERNELS = [
@@ -44,6 +48,9 @@ KERNELS = [
     {"name": "pair_counts", "route": "cuda",
      "source": "vstrains_tpu_torch/csrc/pair_counts.cu",
      "replaces": "vstrains_tpu/ops/pallas_kernels.py:267"},
+    {"name": "sort_rows", "route": "cuda",
+     "source": "vstrains_tpu_torch/csrc/sort_rows.cu",
+     "replaces": "vstrains_tpu/ops/pallas_sort.py:75"},
 ]
 
 
@@ -305,3 +312,60 @@ def pair_counts(f: torch.Tensor, r: torch.Tensor, acc_nm: torch.Tensor,
     _launch("pair_counts", _lib().vt_pair_counts, f.device, f.data_ptr(),
             r.data_ptr(), B, N, words.data_ptr(), acc_nm.data_ptr(),
             acc_sm.data_ptr())
+
+
+# --------------------------------------------------------------------------
+# row sort (csrc/sort_rows.cu)
+# --------------------------------------------------------------------------
+
+def _pow2_at_least(c: int) -> int:
+    L = 1
+    while L < c:
+        L *= 2
+    return L
+
+
+def sort_rows_plain(key: torch.Tensor, val: Optional[torch.Tensor] = None):
+    """torch.sort of one int64 per slot, (key << 32) + (val + 2^31), which
+    is the signed (key, val) order; key-only sorts the keys. Returns
+    (key, val) sorted per row, or the sorted keys when val is None."""
+    if val is None:
+        return torch.sort(key, dim=1).values
+    w = (key.to(torch.int64) << 32) + (val.to(torch.int64) + 2**31)
+    w = torch.sort(w, dim=1).values
+    return ((w >> 32).to(torch.int32),
+            ((w & _M32) - 2**31).to(torch.int32))
+
+
+def sort_rows_uses_shared(C: int) -> bool:
+    """Whether rows of width C sort in the kernel's shared-memory branch
+    (else its global-memory passes) — the branch chip_smoke.py exercises
+    both sides of."""
+    return bool(_lib().vt_sort_rows_uses_shared(_pow2_at_least(C)))
+
+
+def sort_rows(key: torch.Tensor, val: Optional[torch.Tensor] = None):
+    """Sort each row of int32 [R, C] ascending by (key, val), or by key
+    alone when val is None. Returns (key, val), or the sorted keys."""
+    tensors = (key,) if val is None else (key, val)
+    if not _on_cuda(*tensors):
+        return sort_rows_plain(key, val)
+    _expect(key, "key", torch.int32, 2)
+    if val is not None:
+        _expect(val, "val", torch.int32, 2)
+        if val.shape != key.shape:
+            raise ValueError(f"val {tuple(val.shape)} != key "
+                             f"{tuple(key.shape)}")
+    R, C = key.shape
+    key_out = torch.empty_like(key)
+    val_out = None if val is None else torch.empty_like(val)
+    if key.numel():
+        L = _pow2_at_least(C)
+        scratch = (None if _lib().vt_sort_rows_uses_shared(L) else
+                   torch.empty(R * L, dtype=torch.int64, device=key.device))
+        _launch("sort_rows", _lib().vt_sort_rows, key.device,
+                key.data_ptr(), None if val is None else val.data_ptr(),
+                R, C, key_out.data_ptr(),
+                None if val_out is None else val_out.data_ptr(),
+                None if scratch is None else scratch.data_ptr())
+    return key_out if val is None else (key_out, val_out)

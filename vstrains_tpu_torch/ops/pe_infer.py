@@ -1,5 +1,5 @@
-"""Paired-end link inference, dense engine — the PyTorch port of
-`vstrains_tpu/ops/pe_infer.py`.
+"""Paired-end link inference, dense and sparse engines — the PyTorch port
+of `vstrains_tpu/ops/pe_infer.py`.
 
 Host (numpy, as in the JAX package): the k-mer table over node sequences
 (both strands, dual 32-bit window hashes, hash-sorted), the packed
@@ -26,11 +26,18 @@ end-batch, forward reads first:
      kernel `pair_counts`, which adds straight into int64 device
      accumulators (so the JAX driver's int32 spill logic is gone).
 
+Graphs above the dense/sparse cutover (the JAX package's memory rule,
+`dense_budget_rows`) take the sparse engine instead of steps 3-5: the probe's
+per-slot node ids are row-sorted by (node, window) — CUDA kernel
+`sort_rows` (csrc/sort_rows.cu) — and reduced to per-run counts and
+lowest windows by running scans; the saturated nodes of each read
+compact into a (2B, cap) list, and the host expands them into COO link
+keys (`PESparseResult`).
+
 On CPU tensors each kernel wrapper runs its plain torch version instead
 (`--device cpu`, the CPU tests). Paths of the JAX engine not ported yet
-raise NotPortedError: the sparse engine for large graphs, the classic
-sort join (graphs beyond the payload packing), and the 'lookup' /
-'searchsorted' / 'sortjoin' probe modes.
+raise NotPortedError: the classic sort join (graphs beyond the payload
+packing) and the 'lookup' / 'searchsorted' / 'sortjoin' probe modes.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from vstrains_tpu_torch.core.fastq import ReadPairBatch
 from vstrains_tpu_torch.core.seq import (encode_seq, prefix_hash_weights,
@@ -436,6 +444,264 @@ def _pe_batch_bytes(codes: torch.Tensor, lens: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# device: sparse per-batch stats (large-N engine)
+#
+# Nothing N-wide per batch: each read's matched (node, window) slots are
+# row-sorted by node id (CUDA kernel `sort_rows`), per-(read, node) count
+# and lowest window fall out of running scans over each sorted row, and
+# the saturated nodes compact into a small (2B, cap) list. Link counts
+# accumulate on the host as (u * N + v) -> count COO pairs.
+# --------------------------------------------------------------------------
+
+_I32_MAX = 2**31 - 1
+
+
+def _segmented_scans(startf, start_val, kidx_s):
+    """Row-wise segmented (max, min) scans with reset flags: within each
+    run of a sorted row, the run's start position and the running min
+    k-index. A log-step (Hillis-Steele) scan of the JAX package's
+    associative combine."""
+    f, s, k = startf, start_val, kidx_s
+    R = f.shape[1]
+    d = 1
+    while d < R:
+        fa, sa, ka = f[:, :-d], s[:, :-d], k[:, :-d]
+        fb, sb, kb = f[:, d:], s[:, d:], k[:, d:]
+        s = torch.cat([s[:, :d], torch.where(fb, sb, torch.maximum(sa, sb))],
+                      dim=1)
+        k = torch.cat([k[:, :d], torch.where(fb, kb, torch.minimum(ka, kb))],
+                      dim=1)
+        f = torch.cat([f[:, :d], fa | fb], dim=1)
+        d *= 2
+    return s, k
+
+
+def _row_run_stats(node_key, kidx_v, num_nodes: int,
+                   kmax: Optional[int] = None):
+    """Row-sort matched (node, k-index) slots and reduce each equal-node
+    run to (count, min-k).
+
+    Returns (node_s, cnt, kmin, is_end), all int32/bool [B2, R]: the sorted
+    node ids, the running per-run count / min-k (exact at run ends) and
+    the run-end mask (sentinel runs excluded). With `kmax` (exclusive
+    bound on kidx) and node ids small enough that node << kbits | kidx
+    fits int31, the sort carries one packed operand and one cummax
+    replaces the two-plane scan, as in the JAX package; otherwise the
+    two-operand sort and the segmented scans."""
+    B2, R = node_key.shape
+    N = num_nodes
+    kbits = max(1, int(kmax - 1).bit_length()) if kmax else None
+    packed = (kmax is not None
+              and ((N - 1) << kbits) | (kmax - 1) < _I32_MAX
+              and ((R - 1) << kbits) | (kmax - 1) < _I32_MAX)
+    if packed:
+        kmask = (1 << kbits) - 1
+        v = torch.where(node_key == _I32_MAX, _I32_MAX,
+                        (node_key << kbits) | kidx_v)
+        v_s = ck.sort_rows(v.contiguous())
+        node_s = torch.where(v_s == _I32_MAX, _I32_MAX, v_s >> kbits)
+        kidx_s = v_s & kmask
+    else:
+        node_s, kidx_s = ck.sort_rows(node_key.contiguous(),
+                                      kidx_v.contiguous())
+
+    prev = torch.cat([torch.full((B2, 1), -1, dtype=torch.int32,
+                                 device=node_s.device), node_s[:, :-1]], 1)
+    startf = node_s != prev
+    pos = torch.arange(R, dtype=torch.int32,
+                       device=node_s.device).expand(B2, R)
+    if packed:
+        # the run start's (pos, kidx) packed: start values increase with
+        # pos and non-starts carry -1, so the running max is the latest
+        # start, and kidx at a run start is the run's min (the sort
+        # orders kidx ascending within a node)
+        sv = torch.where(startf, (pos << kbits) | kidx_s, -1)
+        ps = torch.cummax(sv, dim=1).values
+        startpos = ps >> kbits
+        kmin = ps & kmask
+    else:
+        start_val = torch.where(startf, pos, -1)
+        startpos, kmin = _segmented_scans(startf, start_val, kidx_s)
+
+    nxt = torch.cat([node_s[:, 1:], torch.full((B2, 1), -1,
+                                               dtype=torch.int32,
+                                               device=node_s.device)], 1)
+    is_end = (node_s != nxt) & (node_s != _I32_MAX)
+    cnt = pos - startpos + 1
+    return node_s, cnt, kmin, is_end
+
+
+def _sat_ok(node_s, cnt, kmin, lens, seq_lens, split_len: int):
+    """The reference saturation test in exact integers (the algebra of
+    _saturate), elementwise; callers mask to run ends."""
+    rl = lens[:, None].to(torch.int32)
+    N = seq_lens.shape[0]
+    ref = seq_lens[node_s.clamp(0, N - 1).to(torch.int64)].to(torch.int32)
+    sat_thresh = torch.minimum(ref - 1, rl - 1 - kmin) - split_len + 2
+    A = torch.minimum(rl, ref) - split_len + 1
+    exp_num = A * (rl - split_len)
+    return (cnt >= sat_thresh) | (cnt * rl >= exp_num)
+
+
+def _compact_rows(ok, node_s, cap: int):
+    """Compact the ok entries of each row into a (B2, cap) list (-1
+    padded, source order kept); returns (out, overflow, counts). The JAX
+    scatter drops out-of-range targets; here they land in a spare last
+    column that is cut off."""
+    B2, R = node_s.shape
+    sidx = torch.cumsum(ok.to(torch.int32), dim=1, dtype=torch.int32) - 1
+    overflow = torch.any(ok & (sidx >= cap))
+    tgt = torch.where(ok & (sidx < cap), sidx, cap).to(torch.int64)
+    out = torch.full((B2, cap + 1), -1, dtype=torch.int32,
+                     device=node_s.device)
+    out.scatter_(1, tgt, node_s)
+    counts = sidx[:, -1] + 1
+    return out[:, :cap], overflow, counts
+
+
+def _sort_compact_runs(node_s, cnt, kmin, is_end, cap_c: int):
+    """Compact every run-end (node, count, min-k) triple to the first
+    cap_c columns: one row sort of (candidate index, column) and one
+    gather by the sorted column. Candidate indices below cap_c are unique,
+    so those columns are JAX's wherever `valid` holds. Returns (valid,
+    node, cnt, kmin) as (B2, cap_c) planes and the candidate-overflow
+    flag."""
+    B2, R = node_s.shape
+    csidx = torch.cumsum(is_end.to(torch.int32), dim=1,
+                         dtype=torch.int32) - 1
+    cand_ovf = torch.any(is_end & (csidx >= cap_c))
+    key = torch.where(is_end & (csidx < cap_c), csidx, _I32_MAX)
+    col = torch.arange(R, dtype=torch.int32,
+                       device=node_s.device).expand(B2, R).contiguous()
+    key_s, col_s = ck.sort_rows(key.contiguous(), col)
+    idx = col_s[:, :cap_c].to(torch.int64)
+    valid = key_s[:, :cap_c] != _I32_MAX
+    return (valid, node_s.gather(1, idx), cnt.gather(1, idx),
+            kmin.gather(1, idx), cand_ovf)
+
+
+def _sparse_sat_tail(node_key, kidx_v, lens, seq_lens, split_len: int,
+                     cap: int, kmax: Optional[int] = None, cap_c: int = 32):
+    """Row-sort stats, then two-phase saturation: compact every run to
+    (B2, cap_c) first and test saturation on the narrow planes. A read
+    with more than cap_c distinct matched nodes, or more than cap
+    saturated ones, raises the overflow flag; the run retries with
+    larger caps. Returns (out, overflow, counts)."""
+    node_s, cnt, kmin, is_end = _row_run_stats(
+        node_key, kidx_v, seq_lens.shape[0], kmax)
+    if cap_c >= node_s.shape[1]:
+        # cap_c covers every slot: the narrow phase cannot drop runs
+        ok = is_end & _sat_ok(node_s, cnt, kmin, lens, seq_lens, split_len)
+        return _compact_rows(ok, node_s, cap)
+    valid, node_c, cnt_c, kmin_c, cand_ovf = _sort_compact_runs(
+        node_s, cnt, kmin, is_end, cap_c)
+    ok = valid & _sat_ok(node_c, cnt_c, kmin_c, lens, seq_lens, split_len)
+    node_m = torch.where(ok, node_c, _I32_MAX)
+    out, ovf2, counts = _compact_rows(ok, node_m, cap)
+    return out, cand_ovf | ovf2, counts
+
+
+def _sparse_sortfill_core(q1, h2, valid, lens, tab: _DeviceTable,
+                          cap: int, cap_c: int):
+    """Probe + sparse tail of one stacked end-batch: (out [2B, cap]
+    saturated node ids ascending, -1 padded; overflow; counts)."""
+    N = tab.num_nodes
+    depth = tab.pays.shape[1]
+    node_t = _sortfill_probe(q1, h2, valid, tab.h1, tab.pays,
+                             tab.node_bits, N)
+    B2, R = node_t.shape
+    matched = node_t < N
+    node_key = torch.where(matched, node_t, _I32_MAX)
+    kidx = (torch.arange(R, dtype=torch.int32, device=node_t.device)
+            // depth).expand(B2, R)
+    kidx_v = torch.where(matched, kidx, _I32_MAX)
+    return _sparse_sat_tail(node_key, kidx_v, lens, tab.seq_lens,
+                            tab.split_len, cap, kmax=R // depth,
+                            cap_c=cap_c)
+
+
+def _stats_sparse_sortfill_wire(wire: torch.Tensor, T: int,
+                                tab: _DeviceTable, cap: int, cap_c: int):
+    """The sparse per-batch pipeline fed by the compact wire format."""
+    q1, h2, valid = ck.window_hashes_wire(wire, T, tab.split_len)
+    return _sparse_sortfill_core(q1, h2, valid, ck.wire_lens(wire), tab,
+                                 cap, cap_c)
+
+
+def _stats_sparse_sortfill(codes: torch.Tensor, lens: torch.Tensor,
+                           tab: _DeviceTable, cap: int, cap_c: int):
+    """The sparse per-batch pipeline fed by stacked byte codes."""
+    q1, h2, valid = ck.window_hashes_bytes(codes, lens, tab.split_len)
+    return _sparse_sortfill_core(q1, h2, valid, lens, tab, cap, cap_c)
+
+
+# --------------------------------------------------------------------------
+# host: sparse COO link keys (numpy, as in the JAX package)
+# --------------------------------------------------------------------------
+
+def _ragged_cross_np(av, ao, bv, bo, na, nb, N, triu=False):
+    """Cross-product link keys over ragged per-read node lists.
+
+    (av, ao, na) are the flattened values / row offsets / row counts of
+    one side; work is O(actual pairs). With triu only position pairs
+    i <= j survive (ascending same-end pairs, diagonal included)."""
+    per = (na * nb).astype(np.int64)
+    P = int(per.sum())
+    if not P:
+        return np.zeros(0, np.int64)
+    starts = np.zeros(len(per), np.int64)
+    np.cumsum(per[:-1], out=starts[1:])
+    row = np.repeat(np.arange(len(per)), per)
+    local = np.arange(P, dtype=np.int64) - starts[row]
+    i = local // nb[row]
+    j = local % nb[row]
+    keys = av[ao[row] + i] * N + bv[bo[row] + j]
+    if triu:
+        keys = keys[i <= j]
+    return keys
+
+
+def _sparse_pairs_np(f_nodes: np.ndarray, r_nodes: np.ndarray, N: int):
+    """COO link keys for one batch from compacted saturated node lists:
+    PE pairs are the full fwd x rve cross product; same-end pairs are
+    ascending (u at or before v in the per-read list, diagonal included),
+    as the reference pair loops (PE_Inference.py:174-188)."""
+    fm = f_nodes >= 0
+    rm = r_nodes >= 0
+    nf = fm.sum(1).astype(np.int64)
+    nr = rm.sum(1).astype(np.int64)
+    fv = f_nodes[fm].astype(np.int64)
+    rv = r_nodes[rm].astype(np.int64)
+    fo = np.zeros(len(nf), np.int64)
+    np.cumsum(nf[:-1], out=fo[1:])
+    ro = np.zeros(len(nr), np.int64)
+    np.cumsum(nr[:-1], out=ro[1:])
+    pe = _ragged_cross_np(fv, fo, rv, ro, nf, nr, N)
+    shorts = [
+        _ragged_cross_np(fv, fo, fv, fo, nf, nf, N, triu=True),
+        _ragged_cross_np(rv, ro, rv, ro, nr, nr, N, triu=True),
+    ]
+    return pe, np.concatenate(shorts)
+
+
+def _merge_coo(key_chunks, count_chunks):
+    """Merge per-batch (keys, counts) COO chunks into one sorted unique
+    (keys, counts) pair (sort + reduceat)."""
+    if not key_chunks:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    keys = np.concatenate(key_chunks)
+    counts = np.concatenate(count_chunks)
+    if keys.size == 0:
+        return (keys, counts.astype(np.int64))
+    order = np.argsort(keys, kind="stable")
+    keys = keys[order]
+    counts = counts[order]
+    starts = np.flatnonzero(
+        np.concatenate([[True], keys[1:] != keys[:-1]]))
+    return keys[starts], np.add.reduceat(counts.astype(np.int64), starts)
+
+
+# --------------------------------------------------------------------------
 # compact wire format
 #
 # 2-bit packed bases + u16 lengths, one uint8 row per pair: fwd codes |
@@ -579,9 +845,32 @@ class PEResult:
     used_reads: int
 
 
+@dataclass
+class PESparseResult:
+    """COO form of the link matrices (the sparse engine's output): keys
+    are u * num_nodes + v (int64, sorted unique), counts int64 —
+    node_mat[u, v] == the pair count."""
+    ids: List[str]
+    pair_keys: np.ndarray
+    pair_counts: np.ndarray
+    short_keys: np.ndarray
+    short_counts: np.ndarray
+    n_reads: int
+    short_reads: int
+    used_reads: int
+
+
 # --------------------------------------------------------------------------
 # driver
 # --------------------------------------------------------------------------
+
+def dense_budget_rows(num_nodes: int) -> int:
+    """The dense/sparse cutover: the largest batch (in pairs) the dense
+    engine takes at `num_nodes`; `stats_mode="auto"` sends a larger batch
+    to the sparse engine. The JAX engine's memory rule (only; its
+    backend-specific early cutovers were measured on CPU and TPU)."""
+    return max(512, (1_500_000_000 // (12 * (num_nodes + 1))) // 2)
+
 
 def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
                    reads: ReadPairBatch, kmer_size: int,
@@ -590,14 +879,15 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
                    stats_mode: str = "auto",
                    table: Optional[KmerTable] = None,
                    logger: logging.Logger = None,
-                   device="cuda") -> PEResult:
+                   device="cuda"):
     """End-to-end PE-link inference for pre-loaded reads, on `device`
     ("cuda" runs the CUDA kernels; "cpu" their plain torch versions).
 
     `kmer_size` is the graph k; windows are (k+1)-mers
-    (PE_Inference.py:114). Per-batch link counts accumulate in int64
-    device matrices, so the host loop just packs and streams batches
-    while the device computes."""
+    (PE_Inference.py:114). Below the dense/sparse cutover (or with
+    stats_mode="dense") per-batch link counts accumulate in int64 device
+    matrices and the result is a PEResult; above it (or with
+    stats_mode="sparse") the sparse engine returns a PESparseResult."""
     logger = logger or _LOG
     dev = resolve_device(device)
     split_len = kmer_size + 1
@@ -613,9 +903,7 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
     logger.info("kmer table: %d entries, max_dup=%d, %d nodes",
                 table.num_entries, table.max_dup, N)
 
-    # dense/sparse cutover: the JAX engine's memory rule (only; its
-    # backend-specific early cutovers were measured on CPU and TPU)
-    budget_rows = max(512, (1_500_000_000 // (12 * (N + 1))) // 2)
+    budget_rows = dense_budget_rows(N)
     sparse = (stats_mode == "sparse"
               or (stats_mode == "auto" and batch_size > budget_rows))
     # don't pad small datasets up to a huge batch
@@ -647,17 +935,17 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
             "saturation range (~46 kb); this engine targets paired-end "
             "short reads")
 
-    if sparse:
-        raise NotPortedError(
-            f"the sparse PE engine is not yet ported (N={N} nodes, batch "
-            f"{batch_size} > {budget_rows} dense rows, or "
-            f"stats_mode='sparse')")
+    # both engines probe with the packed payloads; beyond their packing
+    # (and for the sparse engine's explicit 'sortfill' request, which the
+    # JAX package serves with its classic join) the classic join is due
     node_bits = _sortfill_node_bits(N)
-    if node_bits is None or table.max_dup > _SORTFILL_MAX_DUP:
+    if (node_bits is None or table.max_dup > _SORTFILL_MAX_DUP
+            or (sparse and probe_mode != "sort")):
         raise NotPortedError(
             f"the classic sort join is not yet ported (N={N}, max_dup="
-            f"{table.max_dup} > {_SORTFILL_MAX_DUP} or node ids beyond "
-            f"{_SORTFILL_MAX_NODE_BITS} bits)")
+            f"{table.max_dup} > {_SORTFILL_MAX_DUP}, node ids beyond "
+            f"{_SORTFILL_MAX_NODE_BITS} bits, or the sparse engine with "
+            f"probe_mode={probe_mode!r})")
 
     tab = _DeviceTable(
         h1=torch.from_numpy(table.h1_biased).to(dev),
@@ -665,6 +953,9 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
                                                        node_bits)).to(dev),
         seq_lens=torch.from_numpy(table.seq_lens).to(dev),
         node_bits=node_bits, split_len=split_len, num_nodes=N)
+    if sparse:
+        return _infer_pe_links_sparse(ids, table, tab, reads, batch_size,
+                                      logger)
     acc_nm = torch.zeros((N, N), dtype=torch.int64, device=dev)
     acc_sm = torch.zeros((N, N), dtype=torch.int64, device=dev)
 
@@ -698,15 +989,138 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
                     reads.n_reads, reads.short_reads, reads.used_reads)
 
 
+def _infer_pe_links_sparse(ids, table: KmerTable, tab: _DeviceTable,
+                           reads: ReadPairBatch, batch_size: int,
+                           logger: logging.Logger, cap: int = 16,
+                           cap_c: int = 32) -> PESparseResult:
+    """Large-N engine: the same probe, sparse per-batch stats and host COO
+    accumulation; the footprint does not grow with N.
+
+    Batch i's result is copied to the host behind its own kernels and
+    read after batch i+1 is queued, so the device always has the next
+    batch while the host expands COO keys, and no batch syncs the stream
+    on its own. A cap overflow retries the whole run at 4x the caps with
+    the same table on the device."""
+    N = tab.num_nodes
+    depth = table.max_dup
+    dev = tab.h1.device
+    # clamp by the sparse path's own footprint: ~8 live (2B, K*depth)
+    # int32 planes through sort + scans
+    T = max(reads.fwd_codes.shape[1], reads.rve_codes.shape[1])
+    K = T - tab.split_len + 1
+    row_bytes = max(K * max(depth, 1) * 4 * 8, 1)
+    budget = max(512, (1_500_000_000 // row_bytes) // 2)
+    if batch_size > budget:
+        clamped = max(512, 1 << (budget.bit_length() - 1))
+        logger.info("sparse pe batch clamped %d -> %d (K=%d, depth=%d)",
+                    batch_size, clamped, K, depth)
+        batch_size = clamped
+
+    while True:
+        logger.info("sparse PE stats path: N=%d, cap=%d, depth=%d, "
+                    "batch=%d", N, cap, depth, batch_size)
+        coo = _sparse_run(tab, reads, T, batch_size, cap, cap_c, dev)
+        if coo is not None:
+            break
+        if cap >= 256:
+            raise RuntimeError(
+                "a read saturated more than 256 nodes; graph too "
+                "repetitive for the sparse PE path")
+        logger.info("sparse caps %d/%d overflowed; retrying with %d/%d",
+                    cap, cap_c, cap * 4, cap_c * 4)
+        cap, cap_c = cap * 4, cap_c * 4
+    pk, pc, sk, sc = coo
+    return PESparseResult(list(ids), pk, pc, sk, sc, reads.n_reads,
+                          reads.short_reads, reads.used_reads)
+
+
+def _sparse_run(tab: _DeviceTable, reads: ReadPairBatch, T: int,
+                batch_size: int, cap: int, cap_c: int, dev):
+    """One pass over all batches at the given caps: the merged COO
+    (pair keys, counts, short keys, counts), or None on a cap overflow."""
+    N = tab.num_nodes
+    pe_k, pe_c, st_k, st_c = [], [], [], []
+    on_cuda = dev.type == "cuda"
+
+    def queue(kind, payload):
+        if kind == "wire":
+            out, ovf, _ = _stats_sparse_sortfill_wire(
+                torch.from_numpy(payload).to(dev), T, tab, cap, cap_c)
+        else:
+            codes, lens = _stack_ends_np(*payload)
+            out, ovf, _ = _stats_sparse_sortfill(
+                torch.from_numpy(codes).to(dev),
+                torch.from_numpy(lens).to(dev), tab, cap, cap_c)
+        if not on_cuda:
+            return out, ovf, None
+        out_h = torch.empty(out.shape, dtype=out.dtype, device="cpu",
+                            pin_memory=True)
+        ovf_h = torch.empty((), dtype=torch.bool, device="cpu",
+                            pin_memory=True)
+        out_h.copy_(out, non_blocking=True)
+        ovf_h.copy_(ovf, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+        return out_h, ovf_h, done
+
+    def drain(item) -> bool:
+        out_h, ovf_h, done = item
+        if done is not None:
+            with record_function("sparse.wait"):
+                done.synchronize()
+        if bool(ovf_h):
+            return False
+        with record_function("sparse.coo"):
+            sn = out_h.numpy()
+            b = sn.shape[0] // 2
+            pe, st = _sparse_pairs_np(sn[:b], sn[b:], N)
+            for arr, kl, cl in ((pe, pe_k, pe_c), (st, st_k, st_c)):
+                u, c = np.unique(arr, return_counts=True)
+                kl.append(u)
+                cl.append(c)
+        return True
+
+    # profiler ranges (torch.profiler CPU events; near free when no
+    # profiler runs): sparse.queue = host packing, H2D and kernel
+    # launches of a batch; sparse.wait = the host blocked on the device;
+    # sparse.coo = host COO expansion of a pulled batch
+    pending = None
+    batches = _wire_batches(reads, batch_size)
+    while True:
+        with record_function("sparse.queue"):
+            nxt = next(batches, None)
+            item = None if nxt is None else queue(*nxt)
+        if pending is not None and not drain(pending):
+            return None
+        if item is None:
+            break
+        pending = item
+    return (*_merge_coo(pe_k, pe_c), *_merge_coo(st_k, st_c))
+
+
 # --------------------------------------------------------------------------
 # file-format parity (aln/pe_info, aln/st_info)
 # --------------------------------------------------------------------------
 
-def write_pe_files(result: PEResult, pe_path: str, st_path: str) -> None:
+def write_pe_files(result, pe_path: str, st_path: str) -> None:
     """Write the N^2-line `u:v:count` files
-    (parity: PE_Inference.py:190-207)."""
+    (parity: PE_Inference.py:190-207). Accepts a dense PEResult or a COO
+    PESparseResult (rows rebuilt one by one) — identical bytes."""
     ids = result.ids
     n = len(ids)
+    if isinstance(result, PESparseResult):
+        streams = ((result.pair_keys, result.pair_counts, pe_path),
+                   (result.short_keys, result.short_counts, st_path))
+        for keys, counts, path in streams:
+            with open(path, "w") as fh:
+                for i in range(n):
+                    row = np.zeros(n, dtype=np.int64)
+                    a = np.searchsorted(keys, i * n)
+                    b = np.searchsorted(keys, (i + 1) * n)
+                    row[(keys[a:b] - i * n).astype(np.int64)] = counts[a:b]
+                    fh.write("".join(
+                        f"{ids[i]}:{ids[j]}:{row[j]}\n" for j in range(n)))
+        return
     with open(pe_path, "w") as f_pe, open(st_path, "w") as f_st:
         for i in range(n):
             u = ids[i]
@@ -718,13 +1132,27 @@ def write_pe_files(result: PEResult, pe_path: str, st_path: str) -> None:
                 f"{u}:{ids[j]}:{srow[j]}\n" for j in range(n)))
 
 
-def write_pe_files_sparse(result: PEResult, pe_path: str,
-                          st_path: str) -> None:
+def write_pe_files_sparse(result, pe_path: str, st_path: str) -> None:
     """Write only the NONZERO `u:v:count` lines of the link matrices,
-    row-major. The reference's loader (VStrains_IO.py:598-627, ours in
-    process_pe_info) initializes every pair to 0, so these files load to
-    the same stores as the full N^2-line format."""
+    row-major, from a PEResult or a PESparseResult. The reference's loader
+    (VStrains_IO.py:598-627, ours in process_pe_info) initializes every
+    pair to 0, so these files load to the same stores as the full
+    N^2-line format."""
     ids = result.ids
+    if isinstance(result, PESparseResult):
+        n = len(ids)
+        streams = ((result.pair_keys, result.pair_counts, pe_path),
+                   (result.short_keys, result.short_counts, st_path))
+        for keys, counts, path in streams:
+            nz = counts != 0
+            keys, counts = keys[nz], counts[nz]
+            us = (keys // n).astype(np.int64)
+            vs = (keys - us * n).astype(np.int64)
+            with open(path, "w") as fh:
+                fh.write("".join(
+                    f"{ids[u]}:{ids[v]}:{c}\n" for u, v, c in
+                    zip(us.tolist(), vs.tolist(), counts.tolist())))
+        return
     for mat, path in ((result.node_mat, pe_path),
                       (result.short_mat, st_path)):
         us, vs = np.nonzero(mat)
@@ -760,13 +1188,48 @@ def process_pe_info(node_ids: Sequence[str], pe_info_file: str,
     return pe_info, dict(pe_info)
 
 
-def pe_info_sparse_from_result(node_ids: Sequence[str], result: PEResult):
+def _coo_to_pe_info(node_ids: Sequence[str], result: PESparseResult):
+    """Symmetric PEInfo stores from COO link arrays: (u, v) and (v, u)
+    fold into lexicographic (min, max) id keys, the diagonal counted
+    once — the contract of the dense fold below."""
+    from vstrains_tpu_torch.core.pe_store import PEInfo
+
+    ids = result.ids
+    N = len(ids)
+    keys = np.concatenate([result.pair_keys, result.short_keys])
+    counts = np.concatenate([result.pair_counts, result.short_counts])
+    pe = PEInfo()
+    if keys.size:
+        u = keys // N
+        v = keys % N
+        folded = np.minimum(u, v) * N + np.maximum(u, v)
+        order = np.argsort(folded, kind="stable")
+        folded = folded[order]
+        counts = counts[order]
+        starts = np.flatnonzero(
+            np.concatenate([[True], folded[1:] != folded[:-1]]))
+        uniq = folded[starts]
+        sums = np.add.reduceat(counts, starts)
+        node_set = set(node_ids)
+        keep = np.array([vid in node_set for vid in ids], dtype=bool)
+        for k, c in zip(uniq.tolist(), sums.tolist()):
+            i, j = divmod(k, N)
+            if keep[i] and keep[j]:
+                uu, vv = ids[i], ids[j]
+                pe[(min(uu, vv), max(uu, vv))] = int(c)
+    return pe, PEInfo(pe)
+
+
+def pe_info_sparse_from_result(node_ids: Sequence[str], result):
     """Vectorized sparse construction of the symmetric PE-link store:
     equivalent to pe_info_from_result but O(nonzero pairs) instead of
     O(N^2) Python loops, returning PEInfo stores whose missing pairs read
-    as 0 (the reference's dense zero-init contract). Returns (pe_info,
-    dcpy_pe_info)."""
+    as 0 (the reference's dense zero-init contract). Accepts a dense
+    PEResult or a COO PESparseResult. Returns (pe_info, dcpy_pe_info)."""
     from vstrains_tpu_torch.core.pe_store import PEInfo
+
+    if isinstance(result, PESparseResult):
+        return _coo_to_pe_info(node_ids, result)
 
     ids = result.ids
     node_set = set(node_ids)
