@@ -16,8 +16,10 @@ without the final result line):
   3. each kernel against its plain PyTorch version on the card, at the
      shapes the HIV run gives it, from numpy-seeded inputs: the outputs
      must be bit-equal (tolerance 0: every output is an integer), with
-     the CUDA-event time of each after warm-up; then the same check,
-     untimed, at ragged shapes;
+     the CUDA-event time of each after warm-up beside its bound (the
+     H100's published memory or int8 rate) and, where one PyTorch call
+     computes the same function, that call's time; pair_counts also on
+     all-ones masks; then the same check, untimed, at ragged shapes;
   4. the verify-recipe synthetic dataset through the port CLI on cuda:
      the strain set must equal the planted haplotypes and the output
      files the JAX package's bytes;
@@ -40,9 +42,12 @@ without the final result line):
      package's digests (it is also the warm-up); window_hashes and
      sort_rows against their plain versions at that run's shapes, as in
      6; then the timed run on all 1,048,576 pairs.
-The line before the last is a JSON object with each kernel's launches
-(each from the run of the path it belongs to), error and times; the last
-line is {"ok": true, "device": {...}}.
+The build also prints ptxas's registers and spills per kernel and, from
+cuobjdump, the instruction counts that show the two redesigned kernels'
+designs. The line before the last is a JSON object with each kernel's
+launches (each from the run of the path it belongs to), error, times,
+bound and library call, and its other checked shapes; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -141,6 +146,8 @@ def max_abs_err(name: str, got, want) -> int:
     output is an integer, so the tolerance is 0)."""
     import torch
     torch.cuda.synchronize()
+    if isinstance(got, torch.Tensor):
+        got, want = [got], [want]
     err = 0
     for g, w in zip(got, want):
         if g.shape != w.shape:
@@ -155,28 +162,91 @@ def max_abs_err(name: str, got, want) -> int:
     return err
 
 
-def compare(name: str, kern, plain, iters: int = 20) -> dict:
+# H100 SXM published peaks at 700 W (NVIDIA data sheet): HBM3 bytes/s
+# and dense int8 tensor-core operations/s
+HBM_BYTES_S = 3.35e12
+INT8_OPS_S = 1979e12
+
+
+def bound(nbytes: float, int8_ops: float = 0.0) -> dict:
+    """The least time the card could take: each input byte read once and
+    each output byte written once at the memory rate, or the int8
+    operations at the tensor cores' rate, whichever is longer."""
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = int8_ops / INT8_OPS_S * 1e3
+    if by_ops > by_bytes:
+        return {"bound_ms": by_ops, "bound_by": "operations",
+                "bound_rate": "1,979 TOP/s int8 tensor cores"}
+    return {"bound_ms": by_bytes, "bound_by": "bytes",
+            "bound_rate": "3.35 TB/s HBM3"}
+
+
+def compare(name: str, kern, plain, iters: int = 20, bound_: dict = None,
+            library=None) -> dict:
     """Bit-equality of kernel vs plain outputs, then CUDA-event times
-    after warm-up, in turns plain, kernel, kernel, plain."""
+    after warm-up, in turns plain, kernel, kernel, plain, library.
+    `library` is a list of (label, call) computing the same function in
+    one PyTorch call (timed only, never on the port's path) or a string
+    saying why there is none; the fastest call gives library_ms."""
     err = max_abs_err(name, kern(), plain())
+    calls = library if isinstance(library, list) else []
     for _ in range(3):
         kern()
         plain()
+        for _, call in calls:
+            call()
     p1 = cuda_ms(plain, iters)
     k1 = cuda_ms(kern, iters)
     k2 = cuda_ms(kern, iters)
     p2 = cuda_ms(plain, iters)
+    lib = {label: cuda_ms(call, iters) for label, call in calls}
     res = {"max_abs_err": float(err), "ms": (k1 + k2) / 2,
-           "plain_ms": (p1 + p2) / 2}
-    say(f"kernel {name}: bit-equal to plain; kernel {res['ms']:.4f} ms, "
-        f"plain {res['plain_ms']:.4f} ms (CUDA events, mean of "
-        f"{2 * iters})")
+           "plain_ms": (p1 + p2) / 2, "library_ms": None,
+           "library": library if isinstance(library, str) else None}
+    if lib:
+        best = min(lib, key=lib.get)
+        res.update(library_ms=lib[best], library=best)
+    res.update(bound_ or {})
+    text = (f"kernel {name}: bit-equal to plain; kernel {res['ms']:.4f} ms, "
+            f"plain {res['plain_ms']:.4f} ms")
+    for label, ms in lib.items():
+        text += f", {label} {ms:.4f} ms"
+    if bound_:
+        text += (f"; bound {res['bound_ms']:.4f} ms ({res['bound_by']}), "
+                 f"{100 * res['bound_ms'] / res['ms']:.1f}% of it")
+    say(text + f" (CUDA events, mean of {2 * iters})")
     return res
+
+
+def sort_bound(key, val) -> dict:
+    """Each int32 slot read once and written once, key and value."""
+    return bound(2 * key.numel() * 4 * (1 if val is None else 2))
+
+
+def sort_library(key, val) -> list:
+    """torch.sort over the same rows: of the keys, or of the packed
+    int64 word (key << 32) + (val + 2^31), packing excluded."""
+    import torch
+    if val is None:
+        return [("torch.sort(key, dim=1)", lambda: torch.sort(key, dim=1))]
+    w = (key.to(torch.int64) << 32) + (val.to(torch.int64) + 2**31)
+    return [("torch.sort(packed int64, dim=1)", lambda: torch.sort(w, dim=1))]
+
+
+def hash_bound(in_bytes: int, rows: int, K: int) -> dict:
+    """The feed read once; q1, h2 (int32) and valid (uint8) written."""
+    return bound(in_bytes + rows * K * 9)
+
+
+NO_LIBRARY_HASH = ("none: no PyTorch call computes the fused unpack and "
+                   "the two rolling window hashes")
+NO_LIBRARY_STATS = ("none: the plain version is two scatters (count and "
+                    "min), no single PyTorch call")
 
 
 def ragged_shapes() -> None:
     """Kernel vs plain at ragged shapes the HIV run does not reach (row
-    counts off the 32-read words, nodes off the 64-node tiles, one-row
+    counts off the 32-read words, nodes off the 128-node tiles, one-row
     and one-node batches, odd read widths); correctness only."""
     import numpy as np
     import torch
@@ -213,7 +283,10 @@ def ragged_shapes() -> None:
         max_abs_err(f"stats_accum R={R} C={C} D={D} N={N}",
                     ck.stats_accum(nt, D, N), ck.stats_accum_plain(nt, D, N))
         n += 1
-    for B, N in ((1, 1), (33, 65), (1000, 130), (4097, 773)):
+    # N = 30,000: past one packing slice of nodes (a small read set of a
+    # large graph that takes the dense engine); its four accumulators
+    # hold 29 GB
+    for B, N in ((1, 1), (33, 65), (1000, 130), (4097, 773), (64, 30000)):
         f, r = (torch.from_numpy((rng.rand(B, N) < 0.3).astype(np.uint8))
                 .to(dev) for _ in range(2))
         acc = [torch.full((N, N), 3, dtype=torch.int64, device=dev)
@@ -221,9 +294,12 @@ def ragged_shapes() -> None:
         ck.pair_counts(f, r, acc[0], acc[1])
         ck.pair_counts_plain(f, r, acc[2], acc[3])
         max_abs_err(f"pair_counts B={B} N={N}", acc[:2], acc[2:])
+        del acc
         n += 1
+    torch.cuda.empty_cache()
     for R in (1, 37):
-        for C in (1, 5, 100, 513):
+        for C in (1, 5, 31, 32, 33, 100, 285, 402, 512, 513, 1025, 2049,
+                  4096, 4097):
             key, val = sort_operands(rng, R, C)
             max_abs_err(f"sort_rows R={R} C={C}", ck.sort_rows(key, val),
                         ck.sort_rows_plain(key, val))
@@ -247,31 +323,40 @@ def sort_operands(rng, R: int, C: int):
     return (torch.from_numpy(key).cuda(), torch.from_numpy(val).cuda())
 
 
-def sort_rows_phase(rng) -> None:
+def sort_rows_phase(rng) -> list:
     """sort_rows against its plain version in both of its branches, at
-    the widest row a cap retry reaches on HIV, past the shared-memory
-    branch's limit, and key-only on the transpose (the column sort of
+    the widest row a cap retry reaches on HIV, past the network branch's
+    limit, and key-only on the transpose (the column sort of
     tools/colsort_proto.py). The sparse tail's own shapes are checked
-    where each sparse path runs (sparse_path_kernels)."""
+    where each sparse path runs (sparse_path_kernels). Returns the
+    comparisons."""
     import numpy as np
     import torch
 
     from vstrains_tpu_torch.ops import cuda_kernels as ck
+    out = []
     for R, C, what, iters in ((8192, 201 * 16, "HIV cap retry, D=16", 10),
-                              (2048, 10000, "past the shared branch", 10)):
+                              (2048, 10000, "past the network branch", 10)):
         key, val = sort_operands(rng, R, C)
-        branch = "shared" if ck.sort_rows_uses_shared(C) else "global"
-        if (branch == "global") != (what == "past the shared branch"):
+        branch = "network" if ck.sort_rows_uses_network(C) else "global"
+        if (branch == "global") != (what == "past the network branch"):
             raise AssertionError(f"sort_rows C={C} took the {branch} branch")
-        compare(f"sort_rows ({what}, {branch} branch, R={R} C={C})",
-                lambda: ck.sort_rows(key, val),
-                lambda: ck.sort_rows_plain(key, val), iters=iters)
+        shape = f"{what}, {branch} branch, R={R} C={C}"
+        out.append(dict(compare(
+            f"sort_rows ({shape})", lambda: ck.sort_rows(key, val),
+            lambda: ck.sort_rows_plain(key, val), iters=iters,
+            bound_=sort_bound(key, val), library=sort_library(key, val)),
+            kernel="sort_rows", shape=shape))
     x = torch.from_numpy(np.random.RandomState(5).randint(
         -2**31, 2**31, (2048, 2048)).astype(np.int32)).cuda()
-    compare("sort_rows (key-only on the transpose, L=W=2048, vs "
-            "torch.sort(dim=0))",
-            lambda: [ck.sort_rows(x.T.contiguous()).T],
-            lambda: [torch.sort(x, dim=0).values], iters=10)
+    shape = "key-only on the transpose, L=W=2048, transposes included"
+    out.append(dict(compare(
+        f"sort_rows ({shape})", lambda: ck.sort_rows(x.T.contiguous()).T,
+        lambda: torch.sort(x, dim=0).values, iters=10,
+        bound_=sort_bound(x, None),
+        library=[("torch.sort(x, dim=0)", lambda: torch.sort(x, dim=0))]),
+        kernel="sort_rows", shape=shape))
+    return out
 
 
 def read_gfa(gfa_path: str):
@@ -318,19 +403,25 @@ def kernel_phase(gfa_path: str) -> dict:
     rc[cols >= rl[:, None]] = 255
     wire = torch.from_numpy(P._pack_wire_np(fc, fl, rc, rl, T)).to(dev)
     res = {}
-    res["window_hashes"] = compare(
-        "window_hashes (wire feed)",
+    res["window_hashes"] = dict(compare(
+        f"window_hashes (wire feed, 2B={2 * B} T={T})",
         lambda: ck.window_hashes_wire(wire, T, L),
-        lambda: ck.window_hashes_plain(*ck.unpack_wire_plain(wire, T), L))
+        lambda: ck.window_hashes_plain(*ck.unpack_wire_plain(wire, T), L),
+        bound_=hash_bound(wire.numel(), 2 * B, K), library=NO_LIBRARY_HASH),
+        shape=f"HIV dense, wire feed, 2B={2 * B} T={T}")
     # byte feed: in-read non-ACGT codes and 255 padding
     bc = fc.copy()
     bc[rng.rand(B, T) < 0.002] = 4
     codes, lens = P._stack_ends_np(bc, fl, rc, rl)
     codes_d = torch.from_numpy(codes).to(dev)
     lens_d = torch.from_numpy(lens).to(dev)
-    compare("window_hashes (byte feed)",
-            lambda: ck.window_hashes_bytes(codes_d, lens_d, L),
-            lambda: ck.window_hashes_plain(codes_d, lens_d, L))
+    res["also"] = [dict(compare(
+        f"window_hashes (byte feed, 2B={2 * B} T={T})",
+        lambda: ck.window_hashes_bytes(codes_d, lens_d, L),
+        lambda: ck.window_hashes_plain(codes_d, lens_d, L),
+        bound_=hash_bound(codes_d.numel() + 4 * lens_d.numel(), 2 * B, K),
+        library=NO_LIBRARY_HASH), kernel="window_hashes",
+        shape=f"byte feed, 2B={2 * B} T={T}")]
 
     def node_slots(R, C, n_nodes):
         # each read hits a few nodes; most slots miss (sentinel n_nodes)
@@ -346,33 +437,104 @@ def kernel_phase(gfa_path: str) -> dict:
     nt = node_slots(R, C, N)
     if not ck.stats_accum_uses_shared(N):
         raise AssertionError(f"N={N} should take the shared-memory branch")
-    res["stats_accum"] = compare(
+    res["stats_accum"] = dict(compare(
         f"stats_accum (shared counters, R={R} C={C} N={N})",
         lambda: ck.stats_accum(nt, D, N),
-        lambda: ck.stats_accum_plain(nt, D, N))
+        lambda: ck.stats_accum_plain(nt, D, N),
+        bound_=bound(4 * R * C + 8 * R * N), library=NO_LIBRARY_STATS),
+        shape=f"HIV dense, R={R} C={C} N={N}, shared")
     n_big = 8192
     if ck.stats_accum_uses_shared(n_big):
         raise AssertionError(f"N={n_big} should take the global branch")
     nt_big = node_slots(R, C, n_big)
-    compare(f"stats_accum (global atomics, R={R} C={C} N={n_big})",
-            lambda: ck.stats_accum(nt_big, D, n_big),
-            lambda: ck.stats_accum_plain(nt_big, D, n_big), iters=5)
+    res["also"].append(dict(compare(
+        f"stats_accum (global atomics, R={R} C={C} N={n_big})",
+        lambda: ck.stats_accum(nt_big, D, n_big),
+        lambda: ck.stats_accum_plain(nt_big, D, n_big), iters=5,
+        bound_=bound(4 * R * C + 8 * R * n_big), library=NO_LIBRARY_STATS),
+        kernel="stats_accum", shape=f"R={R} C={C} N={n_big}, global"))
     del nt_big
 
     f = torch.from_numpy((rng.rand(B, N) < 0.004).astype(np.uint8)).to(dev)
     r = torch.from_numpy((rng.rand(B, N) < 0.004).astype(np.uint8)).to(dev)
-
-    def pairs(fn):
-        acc = (torch.zeros((N, N), dtype=torch.int64, device=dev),
-               torch.zeros((N, N), dtype=torch.int64, device=dev))
-        fn(f, r, *acc)
-        return acc
-
-    res["pair_counts"] = compare(
-        f"pair_counts (B={B}, N={N})",
-        lambda: pairs(ck.pair_counts), lambda: pairs(ck.pair_counts_plain))
-    sort_rows_phase(rng)
+    res["pair_counts"] = dict(compare(
+        f"pair_counts (B={B}, N={N})", *pair_calls(f, r),
+        bound_=bound(2 * B * N + 2 * 2 * 8 * N * N,
+                     2 * B * N * N + 2 * B * N * (N + 1)),
+        library=pair_library(f, r)), shape=f"HIV dense, B={B} N={N}")
+    # all ones: every acc_nm cell counts B, every upper acc_sm cell 2B
+    ones = torch.ones((B, N), dtype=torch.uint8, device=dev)
+    acc = [torch.zeros((N, N), dtype=torch.int64, device=dev)
+           for _ in range(2)]
+    ck.pair_counts(ones, ones, *acc)
+    max_abs_err(f"pair_counts all-ones (B={B}, N={N})", acc,
+                [torch.full((N, N), B, dtype=torch.int64, device=dev),
+                 torch.triu(torch.full((N, N), 2 * B, dtype=torch.int64,
+                                       device=dev))])
+    say(f"pair_counts all-ones (B={B}, N={N}): every cell exact")
+    res["also"] += sort_rows_phase(rng)
     return res
+
+
+def pair_calls(f, r):
+    """The kernel and the plain version adding into accumulators of their
+    own, zeroed here once: the first calls (the bit-equality check) see
+    zeros, the timed calls add on."""
+    import torch
+
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    N = f.shape[1]
+    accs = [torch.zeros((N, N), dtype=torch.int64, device=f.device)
+            for _ in range(4)]
+
+    def kern():
+        ck.pair_counts(f, r, accs[0], accs[1])
+        return accs[:2]
+
+    def plain():
+        ck.pair_counts_plain(f, r, accs[2], accs[3])
+        return accs[2:]
+    return kern, plain
+
+
+def pair_library(f, r) -> list:
+    """All three products are blocks of the Gram matrix of X = [f r]
+    (B x 2N, padded to a multiple of 8 columns): torch._int_mm in int8,
+    and torch.mm in bf16 with fp32 output and full-precision reduction
+    (exact: 0/1 products, sums <= 2B < 2^24). _int_mm is timed with each
+    operand row-major or column-major: cuBLASLt's int8 tensor-core
+    kernels take only its TN layout (second operand column-major, first
+    row-major), and the fastest layout counts. Each call is checked to
+    give the plain version's counts before it is timed."""
+    import torch
+
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    B, N = f.shape
+    X = torch.zeros((B, -(-2 * N // 8) * 8), dtype=torch.int8,
+                    device=f.device)
+    X[:, :N] = f
+    X[:, N:2 * N] = r
+    XT = X.T.contiguous()
+    Xb = X.to(torch.bfloat16)
+    XbT = Xb.T.contiguous()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # (first, second) operand of [f r]^T [f r], row- or column-major, by
+    # cuBLASLt's name for the layout
+    layouts = {"NN": (XT, X), "TN": (XT, XT.t()), "NT": (X.t(), X),
+               "TT": (X.t(), XT.t())}
+    calls = [(f"torch._int_mm {name}", lambda a=a, b=b: torch._int_mm(a, b))
+             for name, (a, b) in layouts.items()]
+    calls.append(("torch.mm bf16 [f r]^T [f r], fp32 out",
+                  lambda: torch.mm(XbT, Xb, out_dtype=torch.float32)))
+    want = [torch.zeros((N, N), dtype=torch.int64, device=f.device)
+            for _ in range(2)]
+    ck.pair_counts_plain(f, r, *want)
+    for label, call in calls:
+        G = call().to(torch.int64)
+        max_abs_err(f"library {label}",
+                    [G[:N, N:2 * N],
+                     torch.triu(G[:N, :N] + G[N:2 * N, N:2 * N])], want)
+    return calls
 
 
 def count_launches(name: str, run, expect_on, expect_off=()) -> dict:
@@ -419,7 +581,7 @@ def sparse_path_kernels(what: str, reads, split_len: int, shape: dict,
     engine fed it (the same batching and feed, bit-equal), sort_rows on
     rows of K * depth slots for each of the batch's 2B read ends, with
     (key, val) as the compaction sorts and key-only as the packed
-    `_row_run_stats` sorts. Returns the (key, val) sort's comparison."""
+    `_row_run_stats` sorts. Returns the comparisons."""
     import torch
 
     from vstrains_tpu_torch.ops import cuda_kernels as ck
@@ -429,31 +591,39 @@ def sparse_path_kernels(what: str, reads, split_len: int, shape: dict,
     T = max(reads.fwd_codes.shape[1], reads.rve_codes.shape[1])
     K = T - split_len + 1
     kind, payload = next(P._wire_batches(reads, batch))
+    out = []
     if kind == "wire":
         wire = torch.from_numpy(payload).cuda()
-        compare(f"window_hashes ({what}, wire feed, 2B={2 * batch} T={T} "
-                f"split_len={split_len})",
-                lambda: ck.window_hashes_wire(wire, T, split_len),
-                lambda: ck.window_hashes_plain(*ck.unpack_wire_plain(wire, T),
-                                               split_len), iters=5)
+        label = f"{what}, wire feed, 2B={2 * batch} T={T}"
+        out.append(dict(compare(
+            f"window_hashes ({label} split_len={split_len})",
+            lambda: ck.window_hashes_wire(wire, T, split_len),
+            lambda: ck.window_hashes_plain(*ck.unpack_wire_plain(wire, T),
+                                           split_len), iters=5,
+            bound_=hash_bound(wire.numel(), 2 * batch, K),
+            library=NO_LIBRARY_HASH), kernel="window_hashes", shape=label))
         del wire
     else:
         codes, lens = (torch.from_numpy(x).cuda()
                        for x in P._stack_ends_np(*payload))
-        compare(f"window_hashes ({what}, byte feed, 2B={2 * batch} T={T} "
-                f"split_len={split_len})",
-                lambda: ck.window_hashes_bytes(codes, lens, split_len),
-                lambda: ck.window_hashes_plain(codes, lens, split_len),
-                iters=5)
+        label = f"{what}, byte feed, 2B={2 * batch} T={T}"
+        out.append(dict(compare(
+            f"window_hashes ({label} split_len={split_len})",
+            lambda: ck.window_hashes_bytes(codes, lens, split_len),
+            lambda: ck.window_hashes_plain(codes, lens, split_len), iters=5,
+            bound_=hash_bound(codes.numel() + 4 * lens.numel(), 2 * batch,
+                              K),
+            library=NO_LIBRARY_HASH), kernel="window_hashes", shape=label))
         del codes, lens
     key, val = sort_operands(rng, 2 * batch, K * depth)
-    res = compare(f"sort_rows ({what} sparse tail, R={2 * batch} "
-                  f"C={K * depth})", lambda: ck.sort_rows(key, val),
-                  lambda: ck.sort_rows_plain(key, val))
-    compare(f"sort_rows ({what} sparse tail, key-only, R={2 * batch} "
-            f"C={K * depth})", lambda: [ck.sort_rows(key)],
-            lambda: [ck.sort_rows_plain(key)])
-    return res
+    for v, form in ((val, "(key, val)"), (None, "key-only")):
+        label = f"{what} sparse tail, {form}, R={2 * batch} C={K * depth}"
+        out.append(dict(compare(
+            f"sort_rows ({label})", lambda v=v: ck.sort_rows(key, v),
+            lambda v=v: ck.sort_rows_plain(key, v),
+            bound_=sort_bound(key, v), library=sort_library(key, v)),
+            kernel="sort_rows", shape=label))
+    return out
 
 
 def hiv_sparse_phase(hiv: dict, hiv_data: str, rng) -> dict:
@@ -487,8 +657,7 @@ def hiv_sparse_phase(hiv: dict, hiv_data: str, rng) -> dict:
     reads = load_read_pairs(os.path.join(hiv_data, "reads_1.fastq"),
                             os.path.join(hiv_data, "reads_2.fastq"),
                             split_len, pad_to_multiple=32)
-    sparse_path_kernels("HIV", reads, split_len, shape, rng)
-    return launches
+    return launches, sparse_path_kernels("HIV", reads, split_len, shape, rng)
 
 
 def cell_50k(rec: dict, rng) -> dict:
@@ -560,7 +729,7 @@ def cell_50k(rec: dict, rng) -> dict:
     say(f"50k checked run: {n_chk} pairs in {sec:.3f} s; pe_info/st_info "
         f"byte-equal to the JAX record; sparse path {json.dumps(shape)}")
     # the path's kernels at the shapes it gave them
-    sort_res = sparse_path_kernels(
+    checks = sparse_path_kernels(
         "N=50k", ReadPairBatch(fc, fl, rc, rl, 0, 0, n_all), k + 1, shape,
         rng)
     # (b) the timed run on every pair
@@ -577,7 +746,63 @@ def cell_50k(rec: dict, rng) -> dict:
         f"batches of {batch}; peak device memory {peak:.0f} MiB; cap retries "
         f"{len(retries)}; {res.pair_keys.size} PE links, "
         f"{res.short_keys.size} same-end links")
-    return {"sort_rows": sort_res, "launches": launches}
+    return checks
+
+
+_KERNEL_NAMES = ("pair_counts_kernel", "pack_words", "sort_rows_net",
+                 "sort_tile", "sort_global_stage", "stats_accum_shared",
+                 "stats_accum_global", "window_hashes_kernel")
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable name for a mangled kernel symbol of csrc/: the kernel
+    and, for the row sorter's network, its word type, registers a lane
+    and warps a row."""
+    import re
+    m = re.search(r"sort_rows_netI([jm])Li(\d+)ELi(\d+)E", mangled)
+    if m:
+        word = "uint32" if m.group(1) == "j" else "uint64"
+        return f"sort_rows_net<{word}, P={m.group(2)}, W={m.group(3)}>"
+    return next((n for n in _KERNEL_NAMES if n in mangled), mangled[:60])
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per compiled kernel: ptxas's registers, barriers and
+    spills."""
+    parts = {}
+    name = None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = kernel_name(line.split("'")[1])
+        elif name and ("registers" in line or "spill" in line):
+            parts.setdefault(name, []).append(
+                line.split("info    :")[-1].strip())
+    return [f"ptxas {n}: {'; '.join(p)}" for n, p in parts.items()]
+
+
+def sass_summary(lib_path: str) -> list:
+    """Instruction counts that show the design in the compiled code: the
+    tensor-core products (GMMA) of pair_counts, and the lane shuffles
+    (SHFL) against the shared-memory loads and stores (LDS, STS) of the
+    row sorter's network; from cuobjdump, where the toolkit has it."""
+    import re
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return ["sass: cuobjdump not found, no instruction counts"]
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300).stdout
+    out = []
+    for block in sass.split("Function : ")[1:]:
+        name = kernel_name(block.split()[0])
+        if not name.startswith(("pair_counts", "sort_rows_net")):
+            continue
+        ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9]*)", block, re.M)
+        count = {k: sum(op.startswith(k) for op in ops)
+                 for k in ("HGMMA", "IGMMA", "SHFL", "LDS", "STS", "BAR")}
+        out.append(f"sass {name}: " + ", ".join(
+            f"{k} {v}" for k, v in count.items() if v or k != "HGMMA"))
+    return out
 
 
 def main() -> int:
@@ -606,9 +831,8 @@ def main() -> int:
     _build.load()
     say(f"build: {'compiled' if info['built'] else 'cached'} "
         f"{os.path.relpath(info['path'], REPO)} in {info['seconds']:.2f} s")
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            say(f"  ptxas: {line.strip()}")
+    for line in ptxas_summary(info["log"]) + sass_summary(info["path"]):
+        say(f"  {line}")
 
     # 2. HIV dataset
     hiv = expected["hiv"]
@@ -677,20 +901,30 @@ def main() -> int:
 
     # 6. HIV through the sparse engine
     import numpy as np
-    sparse_launches = hiv_sparse_phase(hiv, hiv_data,
-                                       np.random.RandomState(2))
+    sparse_launches, sparse_checks = hiv_sparse_phase(
+        hiv, hiv_data, np.random.RandomState(2))
 
     # 7. the N = 50,000 cell
     c50 = cell_50k(expected["r50k"], np.random.RandomState(3))
-    kres["sort_rows"] = c50["sort_rows"]
     launches["sort_rows"] = sparse_launches["sort_rows"]
-
+    # each kernel's line: its main-path shape (the HIV dense run's, and
+    # for sort_rows the N = 50k tail's (key, val) sort), its other shapes
+    # under "also"
+    kres["sort_rows"] = next(c for c in c50 if c["kernel"] == "sort_rows")
+    others = kres["also"] + sparse_checks + [
+        c for c in c50 if c is not kres["sort_rows"]]
+    keys = ("shape", "ms", "plain_ms", "library_ms", "library", "bound_ms",
+            "bound_by")
     kernels = []
     for meta in ck.KERNELS:
         m = kres[meta["name"]]
-        kernels.append(dict(meta, launches=launches[meta["name"]],
-                            max_abs_err=m["max_abs_err"], ms=m["ms"],
-                            plain_ms=m["plain_ms"]))
+        kernels.append(dict(
+            meta, launches=launches[meta["name"]],
+            **{k: m.get(k) for k in ("shape", "max_abs_err", "ms",
+                                     "plain_ms", "bound_ms", "bound_by",
+                                     "bound_rate", "library_ms", "library")},
+            also=[{k: c.get(k) for k in keys} for c in others
+                  if c["kernel"] == meta["name"]]))
     shutil.rmtree(WORK, ignore_errors=True)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

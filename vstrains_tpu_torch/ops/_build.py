@@ -123,9 +123,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "vt_window_hashes_bytes": [p, p, i64, i64, i64, p, p, p, p, p],
         "vt_stats_accum": [p, i64, i64, i64, i64, p, p, p],
         "vt_stats_accum_uses_shared": [i64],
-        "vt_pair_counts": [p, p, i64, i64, p, p, p, p],
+        "vt_pair_counts": [p, p, i64, i64, p, i64, p, i64, i64, p, p, p,
+                           p],
         "vt_sort_rows": [p, p, i64, i64, p, p, p, p],
-        "vt_sort_rows_uses_shared": [i64],
+        "vt_sort_rows_uses_network": [i64],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -285,6 +285,61 @@ def pair_counts_plain(f: torch.Tensor, r: torch.Tensor,
     acc_sm += torch.triu(ff.T @ ff + rf.T @ rf).to(torch.int64)
 
 
+# the work list's units: output tiles of PAIR_TILE nodes, read ranges of
+# PAIR_STEP reads (csrc/pair_counts.cu's kTile and 32 kWords; the wrapper
+# passes both and the kernel refuses others)
+PAIR_TILE = 128
+PAIR_STEP = 128
+# cost of one step of a tile, off the diagonal and on it (4 staged
+# operands and 4 products, against 2 and 3): a balance estimate only
+PAIR_STEP_COST = (5, 3)
+
+
+def pair_counts_layout(B: int, N: int):
+    """(Np, Bp): the extents the kernel computes over, N rounded up to
+    whole tiles (rows past N are zeros) and B to whole packed words."""
+    return -(-N // PAIR_TILE) * PAIR_TILE, -(-B // PAIR_STEP) * PAIR_STEP
+
+
+def pair_counts_schedule(B: int, N: int, sms: int):
+    """The kernel's work list for a card of `sms` SMs: (starts int32
+    [blocks + 1], segs int32 [segments, 4]). The steps of every upper
+    tile I <= J of the PAIR_TILE-node grid, tile after tile, are cut into
+    `blocks` <= sms runs of equal cost (PAIR_STEP_COST), one per block
+    (the kernel runs one block per SM); a run that crosses tiles
+    is several segments (tile I, tile J, first read, end read), and block
+    b owns segments starts[b] .. starts[b + 1]. Each segment adds its
+    partial sums once, so a tile is shared by only a few blocks."""
+    T = -(-N // PAIR_TILE)
+    _, Bp = pair_counts_layout(B, N)
+    steps = Bp // PAIR_STEP
+    tiles = [(i, j) for i in range(T) for j in range(i, T)]
+    costs = [PAIR_STEP_COST[i == j] for i, j in tiles]
+    total = steps * sum(costs)
+    blocks = min(sms, steps * len(tiles))
+    ends = [total * (b + 1) // blocks for b in range(blocks)]
+    starts, segs, b, done = [0], [], 0, 0
+    for (i, j), c in zip(tiles, costs):
+        k = 0
+        while k < steps:
+            while done + k * c >= ends[b]:
+                b += 1
+                starts.append(len(segs))
+            k_end = min(steps, max(k + 1, -(-(ends[b] - done) // c)))
+            segs.append((i, j, k * PAIR_STEP, k_end * PAIR_STEP))
+            k = k_end
+        done += steps * c
+    starts += [len(segs)] * (blocks + 1 - len(starts))
+    return (np.array(starts, dtype=np.int32),
+            np.array(segs, dtype=np.int32).reshape(-1, 4))
+
+
+@functools.lru_cache(maxsize=16)
+def _pair_schedule(B: int, N: int, device: torch.device, sms: int):
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in pair_counts_schedule(B, N, sms))
+
+
 def pair_counts(f: torch.Tensor, r: torch.Tensor, acc_nm: torch.Tensor,
                 acc_sm: torch.Tensor) -> None:
     """Add one batch's link counts into the int64 [N, N] accumulators, in
@@ -306,12 +361,18 @@ def pair_counts(f: torch.Tensor, r: torch.Tensor, acc_nm: torch.Tensor,
             or acc_sm.shape != (N, N):
         raise ValueError(f"shapes f{tuple(f.shape)} r{tuple(r.shape)} "
                          f"acc {tuple(acc_nm.shape)}/{tuple(acc_sm.shape)}")
-    # the kernel's bit-packed copies of f and r: [ceil(B/32), N] each
-    words = torch.empty(2 * (-(-B // 32)) * N, dtype=torch.int32,
+    if B == 0 or N == 0:
+        return
+    sms = torch.cuda.get_device_properties(f.device).multi_processor_count
+    starts, segs = _pair_schedule(B, N, f.device, sms)
+    # the kernel's bit-packed copies of f and r: [Bp / 32, N] each
+    _, Bp = pair_counts_layout(B, N)
+    words = torch.empty(2 * (Bp // 32) * N, dtype=torch.int32,
                         device=f.device)
     _launch("pair_counts", _lib().vt_pair_counts, f.device, f.data_ptr(),
-            r.data_ptr(), B, N, words.data_ptr(), acc_nm.data_ptr(),
-            acc_sm.data_ptr())
+            r.data_ptr(), B, N, starts.data_ptr(), starts.shape[0] - 1,
+            segs.data_ptr(), PAIR_TILE, PAIR_STEP, words.data_ptr(),
+            acc_nm.data_ptr(), acc_sm.data_ptr())
 
 
 # --------------------------------------------------------------------------
@@ -337,11 +398,11 @@ def sort_rows_plain(key: torch.Tensor, val: Optional[torch.Tensor] = None):
             ((w & _M32) - 2**31).to(torch.int32))
 
 
-def sort_rows_uses_shared(C: int) -> bool:
-    """Whether rows of width C sort in the kernel's shared-memory branch
+def sort_rows_uses_network(C: int) -> bool:
+    """Whether rows of width C sort in the kernel's register network
     (else its global-memory passes) — the branch chip_smoke.py exercises
     both sides of."""
-    return bool(_lib().vt_sort_rows_uses_shared(_pow2_at_least(C)))
+    return bool(_lib().vt_sort_rows_uses_network(_pow2_at_least(C)))
 
 
 def sort_rows(key: torch.Tensor, val: Optional[torch.Tensor] = None):
@@ -361,7 +422,7 @@ def sort_rows(key: torch.Tensor, val: Optional[torch.Tensor] = None):
     val_out = None if val is None else torch.empty_like(val)
     if key.numel():
         L = _pow2_at_least(C)
-        scratch = (None if _lib().vt_sort_rows_uses_shared(L) else
+        scratch = (None if _lib().vt_sort_rows_uses_network(L) else
                    torch.empty(R * L, dtype=torch.int64, device=key.device))
         _launch("sort_rows", _lib().vt_sort_rows, key.device,
                 key.data_ptr(), None if val is None else val.data_ptr(),
