@@ -43,8 +43,8 @@ without the final result line):
      sort_rows against their plain versions at that run's shapes, as in
      6; then the timed run on all 1,048,576 pairs.
 The build also prints ptxas's registers and spills per kernel and, from
-cuobjdump, the instruction counts that show the two redesigned kernels'
-designs. The line before the last is a JSON object with each kernel's
+cuobjdump, the instruction counts that show the three redesigned
+kernels' designs. The line before the last is a JSON object with each kernel's
 launches (each from the run of the path it belongs to), error, times,
 bound and library call, and its other checked shapes; the last line is
 {"ok": true, "device": {...}}.
@@ -129,10 +129,22 @@ def run_cli(rec: dict, data_dir: str, out_dir: str,
     return wall
 
 
-def cuda_ms(fn, iters: int) -> float:
+# device cycles (~11 ms) the stream sleeps before a timed run, while the
+# host queues the run's launches, so that a kernel shorter than its
+# wrapper's host time is timed back to back and not at the host's pace
+QUEUE_CYCLES = 20_000_000
+
+
+def cuda_ms(fn, iters: int, queue: bool = True) -> float:
+    """Mean device time of `iters` calls between two CUDA events. With
+    `queue` the runs wait behind a device sleep of QUEUE_CYCLES and so
+    run back to back; without it a call shorter than its own host time
+    is timed at the host's pace."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue:
+        torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -257,25 +269,36 @@ def ragged_shapes() -> None:
     dev = torch.device("cuda")
     rng = np.random.RandomState(1)
     n = 0
-    for B, T, L in ((1, 24, 7), (33, 37, 7), (1000, 129, 56)):
+    # (1, 320, 128): SPAdes k = 127 on 2 x 300 bp reads, windows far longer
+    # than a lane's run; (40, 24, 7): K = 18 < 32 lanes; 4099 pairs: 8,198
+    # rows, not a whole number of the kernel's blocks; T = 700: a row
+    # alone in its warp; T = 30,000: rows cut into chunks of windows;
+    # T = 70,000 (byte feed only: the wire's lengths are u16)
+    for B, T, L in ((1, 24, 7), (33, 37, 7), (1000, 129, 56), (1, 320, 128),
+                    (40, 24, 7), (4099, 256, 56), (5, 700, 56),
+                    (3, 30000, 56), (2, 70000, 56)):
         fl = rng.randint(0, T + 1, B).astype(np.int32)
         rl = rng.randint(0, T + 1, B).astype(np.int32)
+        fl[0] = T
         fc = rng.randint(0, 4, (B, T)).astype(np.uint8)
         rc = rng.randint(0, 4, (B, T - 2)).astype(np.uint8)
         fc[np.arange(T)[None, :] >= fl[:, None]] = 255
         rc[np.arange(T - 2)[None, :] >= rl[:, None]] = 255
-        wire = torch.from_numpy(P._pack_wire_np(fc, fl, rc, rl, T)).to(dev)
-        max_abs_err(f"window_hashes wire B={B} T={T} L={L}",
-                    ck.window_hashes_wire(wire, T, L),
-                    ck.window_hashes_plain(*ck.unpack_wire_plain(wire, T),
-                                           L))
+        if T < 2**16:
+            wire = torch.from_numpy(P._pack_wire_np(fc, fl, rc, rl, T)).to(
+                dev)
+            max_abs_err(f"window_hashes wire B={B} T={T} L={L}",
+                        ck.window_hashes_wire(wire, T, L),
+                        ck.window_hashes_plain(
+                            *ck.unpack_wire_plain(wire, T), L))
+            n += 1
         fc[rng.rand(*fc.shape) < 0.05] = 4
         codes, lens = (torch.from_numpy(x).to(dev)
                        for x in P._stack_ends_np(fc, fl, rc, rl))
         max_abs_err(f"window_hashes bytes B={B} T={T} L={L}",
                     ck.window_hashes_bytes(codes, lens, L),
                     ck.window_hashes_plain(codes, lens, L))
-        n += 2
+        n += 1
     for R, C, D, N in ((1, 1, 1, 1), (7, 45, 3, 65), (100, 402, 2, 6144),
                        (3, 17, 16, 6145)):
         nt = rng.randint(0, N + 1, (R, C)).astype(np.int32)
@@ -757,12 +780,15 @@ _KERNEL_NAMES = ("pair_counts_kernel", "pack_words", "sort_rows_net",
 def kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel symbol of csrc/: the kernel
     and, for the row sorter's network, its word type, registers a lane
-    and warps a row."""
+    and warps a row; for the window hashes, the feed."""
     import re
     m = re.search(r"sort_rows_netI([jm])Li(\d+)ELi(\d+)E", mangled)
     if m:
         word = "uint32" if m.group(1) == "j" else "uint64"
         return f"sort_rows_net<{word}, P={m.group(2)}, W={m.group(3)}>"
+    m = re.search(r"window_hashes_kernelILb([01])E", mangled)
+    if m:
+        return f"window_hashes_kernel<{('bytes', 'wire')[int(m.group(1))]}>"
     return next((n for n in _KERNEL_NAMES if n in mangled), mangled[:60])
 
 
@@ -782,9 +808,12 @@ def ptxas_summary(log: str) -> list:
 
 def sass_summary(lib_path: str) -> list:
     """Instruction counts that show the design in the compiled code: the
-    tensor-core products (GMMA) of pair_counts, and the lane shuffles
-    (SHFL) against the shared-memory loads and stores (LDS, STS) of the
-    row sorter's network; from cuobjdump, where the toolkit has it."""
+    tensor-core products (GMMA) of pair_counts; the lane shuffles (SHFL)
+    against the shared-memory loads and stores (LDS, STS) of the row
+    sorter's network; and for the window hashes the shared-memory loads
+    (no power table), the global stores and how many of them are 16-byte
+    (STG.128), and the multiply-adds (IMAD, moves excluded); from
+    cuobjdump, where the toolkit has it."""
     import re
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
@@ -794,14 +823,21 @@ def sass_summary(lib_path: str) -> list:
     out = []
     for block in sass.split("Function : ")[1:]:
         name = kernel_name(block.split()[0])
-        if not name.startswith(("pair_counts", "sort_rows_net")):
+        if name.startswith("window_hashes"):
+            keys = ("LDS", "STS", "STG", "STG.128", "IMAD", "BAR")
+        elif name.startswith(("pair_counts", "sort_rows_net")):
+            keys = ("HGMMA", "IGMMA", "SHFL", "LDS", "STS", "BAR")
+        else:
             continue
         ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                         r"([A-Z][A-Z0-9]*)", block, re.M)
-        count = {k: sum(op.startswith(k) for op in ops)
-                 for k in ("HGMMA", "IGMMA", "SHFL", "LDS", "STS", "BAR")}
+                         r"([A-Z][A-Z0-9.]*)", block, re.M)
+        count = {k: sum(op.startswith(k) for op in ops) for k in keys}
+        count["STG.128"] = sum(op.startswith("STG") and op.endswith(".128")
+                               for op in ops)
+        count["IMAD"] = sum(op.startswith("IMAD")
+                            and not op.startswith("IMAD.MOV") for op in ops)
         out.append(f"sass {name}: " + ", ".join(
-            f"{k} {v}" for k, v in count.items() if v or k != "HGMMA"))
+            f"{k} {count[k]}" for k in keys if count[k] or k != "HGMMA"))
     return out
 
 

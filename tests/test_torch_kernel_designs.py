@@ -1,5 +1,5 @@
-"""The logic of the port's two redesigned CUDA kernels, which cannot run
-on the CPU, emulated in numpy step for step and held to the plain
+"""The logic of the port's three redesigned CUDA kernels, which cannot
+run on the CPU, emulated in numpy step for step and held to the plain
 versions and the JAX package's Pallas kernels (interpret mode):
 
   * pair_counts (csrc/pair_counts.cu): the work list that the wrapper
@@ -16,9 +16,18 @@ versions and the JAX package's Pallas kernels (interpret mode):
     shuffle for strides below one warp's span, shared memory above it,
     coalesced loads in any order and the sorted row out through shared
     memory.
+  * window_hashes (csrc/window_hashes.cu): the launch plan (lanes a row,
+    rows a warp, wide rows cut into window chunks), each warp's codes
+    staged one a byte and read four at a time as words; each lane's run
+    of windows, its first by Horner's rule and the rest by rolling, with
+    a rolling count of bad codes; each warp's outputs staged as one flat
+    range and stored in 16-byte groups with a head and tail a lane each.
 
 Every output is an integer, so every comparison is exact (tolerance 0).
 """
+
+import os
+import re
 
 import numpy as np
 import pytest
@@ -28,8 +37,11 @@ import jax.numpy as jnp
 
 from vstrains_tpu.ops import pe_infer as JP
 from vstrains_tpu.ops.pallas_kernels import pair_matmuls_pallas
+from vstrains_tpu.ops.pallas_kernels import window_hashes_pallas
 from vstrains_tpu.ops.pallas_sort import sort_rows_pallas
+from vstrains_tpu_torch.core.seq import HASH_MULT_1, HASH_MULT_2, _mult_pows
 from vstrains_tpu_torch.ops import cuda_kernels as ck
+from vstrains_tpu_torch.ops import pe_infer as TP
 
 torch.set_num_threads(1)
 
@@ -318,3 +330,392 @@ def test_sort_network_shared_pad_is_conflict_free():
                 for ph in range(0, 32, words_per_phase):
                     banks = (pos[ph:ph + words_per_phase] * bank_words) % 32
                     assert len(set(banks.tolist())) == words_per_phase
+
+
+# --------------------------------------------------------------------------
+# window_hashes
+# --------------------------------------------------------------------------
+
+_BIAS = np.uint32(0x80000000)  # the kernel carries q1 = h1 + 2^31
+_HASH_CU = os.path.join(os.path.dirname(ck.__file__), os.pardir, "csrc",
+                        "window_hashes.cu")
+
+
+def _cu_const(name):
+    """An integer constant of csrc/window_hashes.cu (`constexpr ... name =
+    value;`), so that the emulated plan follows the kernel's source."""
+    with open(_HASH_CU) as fh:
+        m = re.search(rf"constexpr \w+ {name} = ([0-9 *]+);", fh.read())
+    return eval(m.group(1))
+
+
+def _r16(nbytes):
+    return -(-nbytes // 16) * 16
+
+
+def _layout(rows, chunk, L):
+    """A warp's shared memory (the kernel's Layout): bytes of the q1 / h2
+    staging, of the valid staging, and of one row's staged codes."""
+    return (_r16(4 * (rows * chunk + 3)), _r16(rows * chunk + 15),
+            _r16(chunk + L + 15))
+
+
+def _layout_bytes(rows, chunk, L):
+    words, flags, stride = _layout(rows, chunk, L)
+    return 2 * words + flags + rows * stride
+
+
+def _hash_plan(T, L, lanes=None):
+    """The kernel's launch plan (plan() in csrc/window_hashes.cu): lanes,
+    run, chunk, chunks, warps and the block's shared memory. With `lanes`
+    given, the rows are not cut and take that many lanes (the kernel
+    takes any power of two; the emulation runs it at others)."""
+    K = T - L + 1
+    kl, kw = _cu_const("kLanes"), _cu_const("kWarps")
+    smem = _cu_const("kSmem")
+    chunk, chunks = K, 1
+    if lanes is None:
+        lanes = kl
+        if _layout_bytes(32 // kl, K, L) > smem // kw:
+            lanes = 32
+            chunk = min(K, _cu_const("kChunk"))
+            chunks = -(-K // chunk)
+    run = -(-chunk // lanes)
+    if lanes == 32:
+        run |= 1
+    per_warp = _layout_bytes(32 // lanes, chunk, L)
+    warps = kw
+    while warps > 1 and warps * per_warp > smem:
+        warps //= 2
+    return dict(lanes=lanes, run=run, chunk=chunk, chunks=chunks,
+                warps=warps, smem=warps * per_warp)
+
+
+def _bank_load(lanes, run, chunk):
+    """The most lanes of a warp whose first staging stores (row rr of the
+    warp, lane g of the row: word rr chunk + g run) fall in one bank."""
+    return int(np.bincount([((lane // lanes) * chunk + (lane % lanes) * run)
+                            % 32 for lane in range(32)], minlength=32).max())
+
+
+def _row_of_word(i, sw):
+    """The row of a warp's staged word i, as the kernel finds it: i times
+    the float32 reciprocal of sw, truncated, then one step of correction
+    each way."""
+    r = (i.astype(np.float32) * (np.float32(1) / np.float32(sw))).astype(
+        np.int64)
+    r += (r + 1) * sw <= i
+    r -= r * sw > i
+    return r
+
+
+def _stage_word(feed, x):
+    """A loaded word as four staged code bytes: the wire's packed byte
+    spread one code a byte, plus one; a byte-feed word through the
+    per-byte compare (__vcmpltu4), v = c + 1 where c < 4, else 0x81."""
+    x = x.astype(np.uint32)
+    if feed == "wire":
+        return (((x & 0x03) | (x & 0x0C) << 6 | (x & 0x30) << 12
+                 | (x & 0xC0) << 18) + np.uint32(0x01010101))
+    ok = np.where(np.ascontiguousarray(x).view(np.uint8) < 4, 0xFF,
+                  0).astype(np.uint8).view(np.uint32)
+    return (((x & ok) + (ok & np.uint32(0x01010101)))
+            | (~ok & np.uint32(0x81818181)))
+
+
+def _unpack_warp(feed, src, T, B, row0, nrows, c0, sw):
+    """One warp's unpack of its `nrows` rows from code c0 on: word i of
+    its staged codes is word c0 / 4 + i % sw of row row0 + i // sw,
+    loaded from the feed (wire: one packed byte, 0 past ceil(T/4); bytes:
+    four codes, 0 past T) and staged. Returns the staged bytes [nrows,
+    4 sw]."""
+    assert c0 % 4 == 0
+    i = np.arange(nrows * sw)
+    r = _row_of_word(i, sw)
+    assert (r == i // sw).all()
+    t = i - r * sw + c0 // 4
+    row = row0 + r
+    if feed == "wire":
+        T4 = -(-T // 4)
+        half = (row >= B).astype(np.int64)
+        col = np.minimum(half * T4 + t, src.shape[1] - 1)
+        x = np.where(t < T4, src[row - half * B, col], 0)
+    else:
+        pos = 4 * t[:, None] + np.arange(4)[None, :]
+        byte = np.where(pos < T, src[row[:, None], np.minimum(pos, T - 1)],
+                        0).astype(np.uint32)
+        x = (byte[:, 0] | byte[:, 1] << 8 | byte[:, 2] << 16
+             | byte[:, 3] << 24)
+    return _stage_word(feed, x).reshape(nrows, sw).view(np.uint8)
+
+
+def _wire_lens(wire):
+    w = wire.astype(np.int32)
+    return np.concatenate([w[:, -4] | w[:, -3] << 8, w[:, -2] | w[:, -1] << 8])
+
+
+class _CodeStream:
+    """Four code bytes at a time from byte position p (one per lane), as
+    the funnel shift of two aligned words; each read must stay inside the
+    row's staged codes."""
+
+    def __init__(self, words, p):
+        self.words, self.p, self.k = words, p, 0
+
+    def next(self, live):
+        w = (self.p >> 2) + self.k
+        self.k += 1
+        assert (w[live] + 1 < self.words.shape[1]).all()
+        w = np.minimum(w, self.words.shape[1] - 2)
+        lo = self.words[:, w].astype(np.uint64)
+        hi = self.words[:, w + 1].astype(np.uint64)
+        sh = ((self.p & 3) * 8).astype(np.uint64)
+        return (((hi << np.uint64(32)) | lo) >> sh).astype(np.uint32)
+
+
+def _v(x, b):
+    return (x >> np.uint32(8 * b)) & np.uint32(7)
+
+
+def _bad(x, b):
+    return ((x >> np.uint32(8 * b + 7)) & np.uint32(1)).astype(np.int64)
+
+
+def _emulate_lanes(staged, lens, c0, kc, L, lanes, run):
+    """A warp's lanes over its rows' windows [c0, c0 + kc): lane g of a
+    row takes the local run [g run, (g + 1) run), the first window by
+    Horner's rule and the rest by rolling, q1 carried as h1 + 2^31 from
+    the start, with the rolling bad-code count. Returns q1, h2 (uint32)
+    and valid (uint8) [nrows, kc] and how often each window was
+    emitted."""
+    R = staged.shape[0]
+    m1, p1, m2, p2 = (np.uint32(c) for c in ck.hash_constants(L))
+    words = np.ascontiguousarray(staged).view(np.uint32)
+    j0 = np.arange(lanes) * run
+    j0 = j0[j0 < kc]
+    j1 = np.minimum(kc, j0 + run)
+    out = [np.zeros((R, kc), np.uint32), np.zeros((R, kc), np.uint32),
+           np.zeros((R, kc), np.uint8)]
+    emitted = np.zeros((R, kc), np.int64)
+    a1 = np.full((R, len(j0)), _BIAS, np.uint32)
+    a2 = np.zeros_like(a1)
+    nbad = np.zeros(a1.shape, np.int64)
+    room = lens - L - c0
+
+    def emit(j, live):
+        rows, ln = np.nonzero(np.broadcast_to(live, a1.shape))
+        jj = j[ln]
+        out[0][rows, jj] = a1[rows, ln]
+        out[1][rows, jj] = a2[rows, ln]
+        out[2][rows, jj] = (nbad[rows, ln] == 0) & (jj <= room[rows])
+        emitted[rows, jj] += 1
+
+    every = np.ones(len(j0), bool)
+    with np.errstate(over="ignore"):
+        first = _CodeStream(words, j0)
+        for i in range(0, L, 4):
+            x = first.next(every)
+            for b in range(min(4, L - i)):
+                a1 = a1 * m1 + _v(x, b)
+                a2 = a2 * m2 + _v(x, b)
+                nbad += _bad(x, b)
+        emit(j0, every)
+        out_s, in_s = _CodeStream(words, j0), _CodeStream(words, j0 + L)
+        for t in range(1, run, 4):
+            live = j0 + t < j1
+            xo, xi = out_s.next(live), in_s.next(live)
+            for b in range(4):
+                live = j0 + t + b < j1
+                a1 = np.where(live, (a1 - _v(xo, b) * p1) * m1 + _v(xi, b),
+                              a1)
+                a2 = np.where(live, (a2 - _v(xo, b) * p2) * m2 + _v(xi, b),
+                              a2)
+                nbad += np.where(live, _bad(xi, b) - _bad(xo, b), 0)
+                emit(j0 + t + b, live)
+    return out, emitted
+
+
+def _emulate_store_range(got, writes, flat, e0, room, item):
+    """One warp's staged flat range leaving for global elements [e0, e0 +
+    n) in 16-byte groups (global addresses 16-byte aligned), the partial
+    groups at the two ends one element a lane (lanes 0-15 the head,
+    16-31 the tail), for an output whose base address is 16-byte aligned
+    (torch's allocations are). `room` is the staging's size in
+    elements."""
+    n, per = flat.size, 16 // item
+    off = (e0 * item % 16) // item
+    staged = np.zeros(room, flat.dtype)
+    assert off + n <= room
+    staged[off:off + n] = flat
+    base = e0 - off
+    end = off + n
+    head = min(end, -(-off // per) * per)
+    tail = max(head, end // per * per)
+    for lane in range(32):
+        k = off + lane if lane < 16 else tail + lane - 16
+        if k < (head if lane < 16 else end):
+            got[base + k] = staged[k]
+            writes[base + k] += 1
+        for lo in range(head + lane * per, tail, 32 * per):
+            assert (base + lo) * item % 16 == 0
+            got[base + lo:base + lo + per] = staged[lo:lo + per]
+            writes[base + lo:base + lo + per] += 1
+
+
+def _emulate_window_hashes(feed, src, lens, T, L, R, B, plan):
+    """Every warp of the launch: its rows and window chunk, unpack, lanes
+    and stores. Each window must be emitted and each output element
+    written exactly once."""
+    K = T - L + 1
+    lanes, chunk, chunks = plan["lanes"], plan["chunk"], plan["chunks"]
+    rows = 32 // lanes
+    assert chunks == 1 or rows == 1
+    words, flags, stride = _layout(rows, chunk, L)
+    outs = [np.zeros(R * K, np.uint32), np.zeros(R * K, np.uint32),
+            np.zeros(R * K, np.uint8)]
+    writes = [np.zeros(R * K, np.int64) for _ in range(3)]
+    for w in range(-(-R // rows) * chunks):
+        row0, c0 = w // chunks * rows, w % chunks * chunk
+        kc, nrows = min(chunk, K - c0), min(rows, R - row0)
+        staged = _unpack_warp(feed, src, T, B, row0, nrows, c0, stride // 4)
+        per_row, emitted = _emulate_lanes(staged, lens[row0:row0 + nrows],
+                                          c0, kc, L, lanes, plan["run"])
+        assert (emitted == 1).all()
+        for d, (nbytes, item) in enumerate(((words, 4), (words, 4),
+                                            (flags, 1))):
+            _emulate_store_range(outs[d], writes[d], per_row[d].reshape(-1),
+                                 row0 * K + c0, nbytes // item, item)
+    assert all((wr == 1).all() for wr in writes)
+    return (outs[0].view(np.int32).reshape(R, K),
+            outs[1].view(np.int32).reshape(R, K),
+            outs[2].astype(bool).reshape(R, K))
+
+
+def _hash_case(feed, T, L, plan, seed):
+    """13 pairs (26 rows, not a whole number of warps at 1, 2 or 8 rows a
+    warp), lengths from 0 to T; the byte feed with in-read code 4 and 255
+    padding. Returns the emulated kernel's outputs, the plain version's
+    and the stacked codes and lengths."""
+    rng = np.random.RandomState(seed)
+    B = 13
+    fl = rng.randint(0, T + 1, B).astype(np.int32)
+    rl = rng.randint(0, T + 1, B).astype(np.int32)
+    fl[0] = rl[1] = T
+    fc = rng.randint(0, 4, (B, T)).astype(np.uint8)
+    rc = rng.randint(0, 4, (B, T)).astype(np.uint8)
+    if feed == "bytes":
+        fc[rng.rand(B, T) < 0.03] = 4
+        rc[rng.rand(B, T) < 0.03] = 4
+    cols = np.arange(T)[None, :]
+    fc[cols >= fl[:, None]] = 255
+    rc[cols >= rl[:, None]] = 255
+    if feed == "wire":
+        wire = TP._pack_wire_np(fc, fl, rc, rl, T)
+        lens = _wire_lens(wire)
+        got = _emulate_window_hashes(feed, wire, lens, T, L, 2 * B, B, plan)
+        codes, plain_lens = ck.unpack_wire_plain(torch.from_numpy(wire), T)
+        np.testing.assert_array_equal(lens, plain_lens.numpy())
+        codes = codes.numpy()
+    else:
+        codes, lens = TP._stack_ends_np(fc, fl, rc, rl)
+        got = _emulate_window_hashes(feed, codes, lens, T, L, 2 * B, 0, plan)
+    want = ck.window_hashes_plain(torch.from_numpy(codes),
+                                  torch.from_numpy(lens), L)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w.numpy())
+    return got, codes, lens
+
+
+_HASH_SHAPES = [(256, 56), (150, 56), (24, 7), (320, 128), (37, 7)]
+
+
+@pytest.mark.parametrize("lanes", [None, 4, 16, 32])
+@pytest.mark.parametrize("feed", ["wire", "bytes"])
+@pytest.mark.parametrize("T,L", _HASH_SHAPES)
+def test_window_hashes_emulation_matches_plain_and_pallas(feed, T, L, lanes):
+    """Every window, valid or not, equals the plain version and the
+    Pallas kernel, at the kernel's plan (None) and at other lanes a row
+    over whole rows."""
+    got, codes, lens = _hash_case(feed, T, L, _hash_plan(T, L, lanes),
+                                  T * 1000 + L)
+    B = codes.shape[0] // 2
+    K = T - L + 1
+    pal = window_hashes_pallas(jnp.asarray(codes), jnp.asarray(lens), L,
+                               block=B, interpret=True)
+    np.testing.assert_array_equal(got[0], np.asarray(pal[0])[:, :K])
+    np.testing.assert_array_equal(got[1], np.asarray(pal[1])[:, :K])
+    np.testing.assert_array_equal(got[2],
+                                  np.asarray(pal[2])[:, :K].astype(bool))
+
+
+@pytest.mark.parametrize("feed", ["wire", "bytes"])
+@pytest.mark.parametrize("T,L", [(700, 56), (1300, 56), (2100, 56),
+                                 (6000, 5900)])
+def test_window_hashes_emulation_wide_rows(feed, T, L):
+    """Rows too wide for four a warp: one row a warp in chunks of windows
+    (one whole chunk at T = 700 and at L = 5,900; 1,056 + 189 windows at
+    T = 1,300; 1,056 + 989 at T = 2,100), every window equal to the
+    plain version."""
+    plan = _hash_plan(T, L)
+    assert plan["lanes"] == 32
+    assert plan["chunks"] == (2 if T in (1300, 2100) else 1)
+    _hash_case(feed, T, L, plan, T * 1000 + L)
+
+
+@pytest.mark.parametrize("L", [1, 2, 7, 56, 128])
+def test_hash_constants_match_mult_pows(L):
+    """The wrapper passes M and M^(L-1) of each hash, the entries of
+    core/seq._mult_pows that the L-term definition starts from."""
+    m1, p1, m2, p2 = ck.hash_constants(L)
+    for mult, (m, p) in ((HASH_MULT_1, (m1, p1)), (HASH_MULT_2, (m2, p2))):
+        pows = _mult_pows(mult, L + 1)
+        assert (m, p) == (int(pows[1]), int(pows[L - 1]))
+
+
+def test_hash_bias_obeys_the_recurrences():
+    """q1 = h1 + 2^31 (= h1 ^ 2^31) follows the Horner step and the roll
+    unchanged, because 2^31 M = 2^31 mod 2^32 for the odd multiplier."""
+    rng = np.random.RandomState(5)
+    m, p = (np.uint32(c) for c in ck.hash_constants(56)[:2])
+    h = rng.randint(0, 2**32, 1000, dtype=np.uint64).astype(np.uint32)
+    vo, vi = (rng.randint(1, 5, 1000).astype(np.uint32) for _ in range(2))
+    with np.errstate(over="ignore"):
+        np.testing.assert_array_equal((h + _BIAS) * m + vi,
+                                      (h * m + vi) ^ _BIAS)
+        np.testing.assert_array_equal((h + _BIAS - vo * p) * m + vi,
+                                      ((h - vo * p) * m + vi) ^ _BIAS)
+
+
+@pytest.mark.parametrize("T", [8, 24, 37, 150, 256, 320, 4096, 20000])
+def test_hash_unpack_row_of_word(T):
+    """The kernel's float32 reciprocal finds the row of every staged word
+    of a warp's rows (up to 32 of them)."""
+    sw = _r16(T + 16) // 4
+    i = np.arange(32 * sw)
+    np.testing.assert_array_equal(_row_of_word(i, sw), i // sw)
+
+
+@pytest.mark.parametrize("T,L", _HASH_SHAPES + [
+    (129, 56), (1024, 56), (4096, 56), (700, 56), (30000, 56), (70000, 56),
+    (2**20 - 1, 56), (6000, 5900)])
+def test_hash_layout_lanes_runs_and_banks(T, L):
+    """The plan covers every window once: lanes run covers a chunk and
+    the chunks cover K; only a row alone in its warp is cut, at a
+    multiple of four codes (the word loads). Rows that fit four to a warp
+    are not cut; every block stays within the kernel's aim for shared
+    memory (and its limit on sm_90), so wide rows cost no more of it.
+    With one row a warp the run is odd, so the 32 lanes' first staging
+    stores fall in 32 banks."""
+    K = T - L + 1
+    p = _hash_plan(T, L)
+    lanes, run, chunk, chunks = p["lanes"], p["run"], p["chunk"], p["chunks"]
+    rows = 32 // lanes
+    assert lanes in (_cu_const("kLanes"), 32)
+    assert lanes * run >= chunk > lanes * (run - 1 - (lanes == 32))
+    assert chunks * chunk >= K > (chunks - 1) * chunk
+    assert chunks == 1 or (rows == 1 and chunk % 4 == 0)
+    if _layout_bytes(4, K, L) <= _cu_const("kSmem") // _cu_const("kWarps"):
+        assert (lanes, chunks) == (_cu_const("kLanes"), 1)
+    assert p["smem"] <= _cu_const("kSmem") <= _cu_const("kMaxSmem")
+    if rows == 1:
+        assert _bank_load(lanes, run, chunk) == 1

@@ -119,8 +119,8 @@ def build() -> dict:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     sigs = {
-        "vt_window_hashes_wire": [p, i64, i64, i64, i64, p, p, p, p, p],
-        "vt_window_hashes_bytes": [p, p, i64, i64, i64, p, p, p, p, p],
+        "vt_window_hashes_wire": [p, *[i64] * 8, p, p, p, p],
+        "vt_window_hashes_bytes": [p, p, *[i64] * 7, p, p, p, p],
         "vt_stats_accum": [p, i64, i64, i64, i64, p, p, p],
         "vt_stats_accum_uses_shared": [i64],
         "vt_pair_counts": [p, p, i64, i64, p, i64, p, i64, i64, p, p, p,

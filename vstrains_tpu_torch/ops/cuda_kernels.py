@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from vstrains_tpu_torch.core.seq import (HASH_MULT_1, HASH_MULT_2,
-                                         _mult_pows, prefix_hash_weights)
+                                         prefix_hash_weights)
 
 INF = 2**31 - 1
 _M32 = 0xFFFFFFFF
@@ -96,15 +96,6 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {text} "
                            f"({err})")
     LAUNCHES[name] += 1
-
-
-@functools.lru_cache(maxsize=16)
-def _hash_pows(split_len: int, device: str) -> torch.Tensor:
-    """uint32 bits [2, L]: row d holds M_d^(L-1-i), i = 0..L-1."""
-    pows = np.stack([_mult_pows(HASH_MULT_1, split_len)[::-1],
-                     _mult_pows(HASH_MULT_2, split_len)[::-1]])
-    return torch.from_numpy(
-        np.ascontiguousarray(pows).view(np.int32)).to(device)
 
 
 # --------------------------------------------------------------------------
@@ -180,6 +171,13 @@ def window_hashes_plain(codes: torch.Tensor, lens: torch.Tensor,
             valid)
 
 
+def hash_constants(split_len: int):
+    """(M1, M1^(L-1), M2, M2^(L-1)) mod 2^32: what the kernel's Horner
+    steps and rolls multiply by (csrc/window_hashes.cu)."""
+    return tuple(v for m in (int(HASH_MULT_1), int(HASH_MULT_2))
+                 for v in (m, pow(m, split_len - 1, 2**32)))
+
+
 def _hash_outputs(R: int, K: int, device):
     return (torch.empty((R, K), dtype=torch.int32, device=device),
             torch.empty((R, K), dtype=torch.int32, device=device),
@@ -200,9 +198,8 @@ def window_hashes_wire(wire: torch.Tensor, T: int, split_len: int):
     if K <= 0:
         raise ValueError(f"read width {T} is shorter than a window")
     q1, h2, valid = _hash_outputs(2 * B, K, wire.device)
-    pows = _hash_pows(split_len, str(wire.device))
     _launch("window_hashes", _lib().vt_window_hashes_wire, wire.device,
-            wire.data_ptr(), B, W, T, split_len, pows.data_ptr(),
+            wire.data_ptr(), B, W, T, split_len, *hash_constants(split_len),
             q1.data_ptr(), h2.data_ptr(), valid.data_ptr())
     return q1, h2, valid.view(torch.bool)
 
@@ -222,10 +219,9 @@ def window_hashes_bytes(codes: torch.Tensor, lens: torch.Tensor,
     if K <= 0:
         raise ValueError(f"read width {T} is shorter than a window")
     q1, h2, valid = _hash_outputs(R, K, codes.device)
-    pows = _hash_pows(split_len, str(codes.device))
     _launch("window_hashes", _lib().vt_window_hashes_bytes, codes.device,
             codes.data_ptr(), lens.data_ptr(), R, T, split_len,
-            pows.data_ptr(), q1.data_ptr(), h2.data_ptr(), valid.data_ptr())
+            *hash_constants(split_len), q1.data_ptr(), h2.data_ptr(), valid.data_ptr())
     return q1, h2, valid.view(torch.bool)
 
 
