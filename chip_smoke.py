@@ -19,7 +19,10 @@ without the final result line):
      the CUDA-event time of each after warm-up beside its bound (the
      H100's published memory or int8 rate) and, where one PyTorch call
      computes the same function, that call's time; pair_counts also on
-     all-ones masks; then the same check, untimed, at ragged shapes;
+     all-ones masks; then the same check, untimed, at ragged shapes (for
+     dup_scan: synthetic padded tables with duplicate runs, scans that
+     start at or just before the table's end, queries equal to the
+     padding, all-invalid rows, D up to 64);
   4. the verify-recipe synthetic dataset through the port CLI on cuda:
      the strain set must equal the planted haplotypes and the output
      files the JAX package's bytes;
@@ -27,7 +30,15 @@ without the final result line):
      16384, the dense PE engine) with every kernel's launch count reset
      just before: outputs byte-equal to the JAX package's, the dense
      engine's kernels launched, stage times, PE throughput and per-strain
-     NGA50 printed;
+     NGA50 printed, and the "sort" engine wall from the run's log; then
+     that run's graph (gfa/s_graph_L1.gfa) and reads through
+     `infer_pe_links` in each classic probe mode ("sortjoin", "lookup",
+     "searchsorted"): write_pe_files byte-equal to the HIV record's aln
+     files, dup_scan launched, engine wall and peak memory printed; dup_scan
+     at the HIV shapes (K = 201, D = 1, max_dup, 32); the graph passes on
+     the card (graph_is_dag_device against the host DFS before and after
+     one back edge; edge_flow_device on 20,000 edges against the float64
+     host path, rtol 1e-6);
   6. the same HIV dataset through the port CLI with --pe-batch-size
      262144, which the dense/sparse memory rule routes to the sparse PE
      engine: outputs byte-equal to the same JAX record (the two engines
@@ -41,13 +52,27 @@ without the final result line):
      262,144 pairs whose `write_pe_files_sparse` files must equal the JAX
      package's digests (it is also the warm-up); window_hashes and
      sort_rows against their plain versions at that run's shapes, as in
-     6; then the timed run on all 1,048,576 pairs.
+     6; then the timed run on all 1,048,576 pairs;
+  8. the repeat cell (`tools/repeat_workload.repeat_workload`, seed 5:
+     1,024 nodes of 400 bp in 32 groups sharing an 80-bp motif, max_dup
+     32, so the classic join; 262,144 pairs of 150 bp) through
+     infer_pe_links dense and sparse, both write_pe_files outputs equal to
+     the JAX record "repeat"; dup_scan at its shape (2B = 32,768, K = 95,
+     D = 32), the kernels line's main shape for dup_scan;
+  9. the N = 300,000 cell (`bench.synth_workload`, 300,000 nodes of 200
+     bp, past the packed probe's 2^18 node ids: the sparse engine and the
+     classic join; 1,048,576 pairs, seed 0): host seconds of each set-up
+     step, a checked run of 65,536 pairs against the JAX record "r300k",
+     window_hashes, dup_scan and sort_rows at that run's shapes, then the
+     timed run on every pair.
 The build also prints ptxas's registers and spills per kernel and, from
 cuobjdump, the instruction counts that show the three redesigned
-kernels' designs. The line before the last is a JSON object with each kernel's
-launches (each from the run of the path it belongs to), error, times,
-bound and library call, and its other checked shapes; the last line is
-{"ok": true, "device": {...}}.
+kernels' designs and dup_scan's loads and stores. Every run above resets
+the launch counts just before and checks just after that its path's
+kernels launched and no other path's did. The line before the last is a
+JSON object with each kernel's launches (each from the run of the path it
+belongs to), error, times, bound and library call, and its other checked
+shapes; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -598,13 +623,14 @@ def sparse_run_shape(lines) -> dict:
 
 
 def sparse_path_kernels(what: str, reads, split_len: int, shape: dict,
-                        rng) -> dict:
+                        rng, force_bytes: bool = False) -> dict:
     """The sparse path's kernels against their plain versions at the
     shapes that path gave them: window_hashes on the first batch the
-    engine fed it (the same batching and feed, bit-equal), sort_rows on
-    rows of K * depth slots for each of the batch's 2B read ends, with
-    (key, val) as the compaction sorts and key-only as the packed
-    `_row_run_stats` sorts. Returns the comparisons."""
+    engine fed it (the same batching and feed, bit-equal; the classic
+    probe's runs take the byte feed), sort_rows on rows of K * depth slots
+    for each of the batch's 2B read ends, with (key, val) as the
+    compaction sorts and key-only as the packed `_row_run_stats` sorts.
+    Returns the comparisons."""
     import torch
 
     from vstrains_tpu_torch.ops import cuda_kernels as ck
@@ -613,7 +639,8 @@ def sparse_path_kernels(what: str, reads, split_len: int, shape: dict,
     batch, depth = shape["batch"], shape["depth"]
     T = max(reads.fwd_codes.shape[1], reads.rve_codes.shape[1])
     K = T - split_len + 1
-    kind, payload = next(P._wire_batches(reads, batch))
+    kind, payload = next(P._wire_batches(reads, batch,
+                                         force_bytes=force_bytes))
     out = []
     if kind == "wire":
         wire = torch.from_numpy(payload).cuda()
@@ -660,7 +687,8 @@ def hiv_sparse_phase(hiv: dict, hiv_data: str, rng) -> dict:
     pe_batch = 262144
     launches, wall = count_launches(
         "hiv sparse", lambda: run_cli(hiv, hiv_data, out, pe_batch=pe_batch),
-        ("window_hashes", "sort_rows"), ("stats_accum", "pair_counts"))
+        ("window_hashes", "sort_rows"),
+        ("stats_accum", "pair_counts", "dup_scan"))
     with open(os.path.join(out, "vstrains.log")) as fh:
         shape = sparse_run_shape(fh)
     say(f"hiv sparse: sparse PE stats path ran: {json.dumps(shape)}")
@@ -683,10 +711,23 @@ def hiv_sparse_phase(hiv: dict, hiv_data: str, rng) -> dict:
     return launches, sparse_path_kernels("HIV", reads, split_len, shape, rng)
 
 
+def _keep_log(name: str):
+    """A logger whose messages land in the returned list."""
+    import logging
+    log = logging.getLogger(name)
+    messages = []
+
+    class _Keep(logging.Handler):
+        def emit(self, record):
+            messages.append(record.getMessage())
+
+    log.addHandler(_Keep())
+    log.setLevel(logging.INFO)
+    return log, messages
+
+
 def cell_50k(rec: dict, rng) -> dict:
     """The N = 50,000 cell through infer_pe_links(stats_mode="auto")."""
-    import logging
-
     import torch
 
     from bench import synth_workload
@@ -715,15 +756,7 @@ def cell_50k(rec: dict, rng) -> dict:
         f"{table.max_dup}, built in {build_s:.3f} s; dense budget "
         f"{budget_rows} rows < batch {batch}: auto routes to sparse")
 
-    log = logging.getLogger("chip_smoke.r50k")
-    messages = []
-
-    class _Keep(logging.Handler):
-        def emit(self, record):
-            messages.append(record.getMessage())
-
-    log.addHandler(_Keep())
-    log.setLevel(logging.INFO)
+    log, messages = _keep_log("chip_smoke.r50k")
 
     def engine(n):
         reads = ReadPairBatch(fc[:n], fl[:n], rc[:n], rl[:n], 0, 0, n)
@@ -739,7 +772,8 @@ def cell_50k(rec: dict, rng) -> dict:
     n_chk = rec["checked_pairs"]
     launches, (res, sec) = count_launches(
         "50k checked run", lambda: engine(n_chk),
-        ("window_hashes", "sort_rows"), ("stats_accum", "pair_counts"))
+        ("window_hashes", "sort_rows"),
+        ("stats_accum", "pair_counts", "dup_scan"))
     if not isinstance(res, P.PESparseResult):
         raise AssertionError("50k: auto routing did not pick the sparse "
                              "engine")
@@ -772,9 +806,375 @@ def cell_50k(rec: dict, rng) -> dict:
     return checks
 
 
+NO_LIBRARY_DUP = ("none: no single PyTorch call computes the duplicate-run "
+                  "scan's gathers and compares")
+def dup_bound(R: int, K: int, D: int) -> dict:
+    """Each window's q1, h2, lo (int32) and valid (uint8) read once and its
+    D slots (int32) written; the table gathers are not counted."""
+    return bound(R * K * 13 + R * K * D * 4)
+
+
+def classic_inputs(table, reads, batch: int, split_len: int):
+    """The classic probe's operands on the card for the first `batch`
+    pairs of `reads` (stacked, byte feed): (q1, h2, valid, lo, tab_h1,
+    tab_h2, tab_node), lo from the join."""
+    import torch
+
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    from vstrains_tpu_torch.ops import pe_infer as P
+    _, payload = next(P._wire_batches(reads, batch, force_bytes=True))
+    codes, lens = (torch.from_numpy(x).cuda()
+                   for x in P._stack_ends_np(*payload))
+    q1, h2, valid = ck.window_hashes_bytes(codes, lens, split_len)
+    tab = [torch.from_numpy(a).cuda()
+           for a in (table.h1_biased, table.h2, table.node)]
+    return (q1, h2, valid, P._join_lo(q1, tab[0]), *tab)
+
+
+def dup_scan_compare(label: str, args, depth: int, N: int,
+                     iters: int = 20) -> dict:
+    """dup_scan against dup_scan_plain on the same operands, timed."""
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    R, K = args[0].shape
+    shape = f"{label}, R={R} K={K} D={depth}"
+    res = compare(f"dup_scan ({shape})",
+                  lambda: ck.dup_scan(*args, depth, N),
+                  lambda: ck.dup_scan_plain(*args, depth, N), iters=iters,
+                  bound_=dup_bound(R, K, depth), library=NO_LIBRARY_DUP)
+    hits = int((ck.dup_scan_plain(*args, depth, N) < N).sum())
+    say(f"dup_scan ({shape}): {hits} of {R * K * depth} slots matched")
+    return dict(res, kernel="dup_scan", shape=shape)
+
+
+def dup_scan_ragged(rng) -> int:
+    """dup_scan against its plain version, untimed, on synthetic padded
+    tables with duplicate runs: rows not a whole number of the kernel's
+    blocks, windows whose scan starts at M (a lookup miss) or 3 entries
+    before it, windows equal to the padding (h1 = INT32_MAX, h2 = -1),
+    all-invalid rows, an unpadded table, and D up to 64."""
+    import numpy as np
+    import torch
+
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    n = 0
+    for R, K, D, m_real, M in ((1001, 37, 3, 1000, 1024),
+                               (5, 201, 64, 1000, 1024),
+                               (1, 1, 1, 1, 1024),
+                               (257, 95, 40, 2048, 2048),
+                               (3, 9, 17, 600, 1024)):
+        N = 50
+        h1 = np.sort(rng.randint(-2**31, 2**31 - 1, m_real))
+        for i in range(1, m_real):  # duplicate runs of any length
+            if rng.rand() < 0.7:
+                h1[i] = h1[i - 1]
+        h1 = np.concatenate([h1, np.full(M - m_real, 2**31 - 1)])
+        h2 = np.concatenate([rng.randint(-1, 3, m_real),
+                             np.full(M - m_real, -1)])
+        node = np.concatenate([rng.randint(0, N, m_real),
+                               np.zeros(M - m_real, np.int64)])
+        q1 = h1[rng.randint(0, M, (R, K))]
+        miss = rng.rand(R, K) < 0.2
+        q1[miss] = rng.randint(-2**31, 2**31 - 1, int(miss.sum()))
+        hq = rng.randint(-1, 3, (R, K))
+        valid = rng.rand(R, K) < 0.9
+        if R > 1:
+            valid[0] = False
+        lo = np.searchsorted(h1, q1, side="left")
+        lo[rng.rand(R, K) < 0.1] = M
+        if R > 2:
+            lo[-1] = M - 3
+        t = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()
+             for a in (q1, hq, lo, h1, h2, node)]
+        args = (t[0], t[1], torch.from_numpy(valid).cuda(), t[2], *t[3:])
+        max_abs_err(f"dup_scan R={R} K={K} D={D} M={M}",
+                    ck.dup_scan(*args, D, N), ck.dup_scan_plain(*args, D, N))
+        n += 1
+    return n
+
+
+def hiv_classic_phase(hiv: dict, hiv_data: str, hiv_out: str) -> tuple:
+    """The dense HIV CLI run's graph (gfa/s_graph_L1.gfa, loaded as the
+    pipeline's resume does) and reads (the pipeline's loader) through
+    infer_pe_links in each classic probe mode on the card: "sortjoin",
+    "lookup" (its bucket index built inside the call) and "searchsorted"
+    (the CLI run was "sort"). Each run's write_pe_files output must equal
+    the HIV record's aln/pe_info and aln/st_info; each run must launch
+    dup_scan and the dense kernels, and not sort_rows. Then dup_scan at
+    the HIV shapes. Returns (view, the dup_scan checks)."""
+    import torch
+
+    from vstrains_tpu_torch.core.fastq import load_read_pairs
+    from vstrains_tpu_torch.core.gfa import load_flipped_gfa
+    from vstrains_tpu_torch.ops import pe_infer as P
+
+    view = load_flipped_gfa(os.path.join(hiv_out, "gfa", "s_graph_L1.gfa"))
+    ids = list(view.nodes.keys())
+    seqs = [view.nodes[i].seq for i in ids]
+    ksize = next(iter(view.edges.values())).overlap
+    reads = load_read_pairs(os.path.join(hiv_data, "reads_1.fastq"),
+                            os.path.join(hiv_data, "reads_2.fastq"),
+                            ksize + 1, pad_to_multiple=32)
+    t0 = time.time()
+    table = P.build_kmer_table(seqs, ksize + 1)
+    say(f"hiv classic: {len(ids)} nodes, {reads.num_pairs} pairs; table "
+        f"{table.num_entries} entries, max_dup {table.max_dup}, built in "
+        f"{time.time() - t0:.4f} s")
+    want = {"pe_info": hiv["outputs"]["aln/pe_info"],
+            "st_info": hiv["outputs"]["aln/st_info"]}
+    dense = ("window_hashes", "stats_accum", "pair_counts")
+    for mode in ("sortjoin", "lookup", "searchsorted"):
+        def run(mode=mode):
+            torch.cuda.synchronize()
+            t = time.time()
+            res = P.infer_pe_links(ids, seqs, reads, ksize, batch_size=16384,
+                                   probe_mode=mode, table=table,
+                                   device="cuda")
+            torch.cuda.synchronize()
+            return res, time.time() - t
+        torch.cuda.reset_peak_memory_stats()
+        _, (res, sec) = count_launches(f"hiv probe_mode={mode}", run,
+                                       dense + ("dup_scan",), ("sort_rows",))
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        out = os.path.join(WORK, f"hiv_{mode}")
+        os.makedirs(out, exist_ok=True)
+        P.write_pe_files(res, os.path.join(out, "pe_info"),
+                         os.path.join(out, "st_info"))
+        check_digests(f"HIV probe_mode={mode}", out, want)
+        say(f"hiv probe_mode={mode}: engine {sec:.4f} s (table prebuilt), "
+            f"{reads.num_pairs / sec:.1f} pairs/s; peak device memory "
+            f"{peak:.0f} MiB; pe_info/st_info byte-equal to the JAX record")
+    args = classic_inputs(table, reads, 16384, ksize + 1)
+    checks = [dup_scan_compare(f"HIV D={d}", args, d, table.num_nodes)
+              for d in sorted({1, table.max_dup, 32})]
+    del args
+    torch.cuda.empty_cache()
+    return view, checks
+
+
+def graph_phase(view) -> None:
+    """The graph passes on the card: graph_is_dag_device on the HIV graph
+    against the host DFS (algos.dag.graph_is_DAG), before and after one
+    back edge; edge_flow_device on a seeded graph of 20,000 edges (the
+    device path's own threshold) against the exact float64 host path."""
+    import numpy as np
+
+    from vstrains_tpu_torch.algos.dag import graph_is_DAG
+    from vstrains_tpu_torch.core.graph import new_view
+    from vstrains_tpu_torch.ops import graph_ops as G
+
+    states = []
+    for step in ("as loaded", "plus one back edge"):
+        if states:  # the back edge closes a cycle u -> v -> u
+            u, v = next((u, v) for u, v in view.edges
+                        if u != v and (v, u) not in view.edges)
+            view.add_edge(view.nodes[v], view.nodes[u],
+                          view.edges[u, v].overlap)
+        dev, host = (G.graph_is_dag_device(view.tensors(), device="cuda"),
+                     graph_is_DAG(view))
+        if dev != host:
+            raise AssertionError(f"DAG check on the card {dev} != host "
+                                 f"{host} ({step})")
+        states.append(f"{step}: {dev}")
+    if dev:
+        raise AssertionError("a graph with a back edge passed as a DAG")
+    say(f"graph_is_dag_device on the HIV graph ({view.tensors().num_nodes} "
+        f"nodes) equals the host DFS: {'; '.join(states)}")
+    rng = np.random.RandomState(7)
+    g = new_view()
+    n, m = 6000, 20_000
+    nodes = [g.add_vertex(str(i), float(rng.randint(1, 500)), "ACGT" * 3)
+             for i in range(n)]
+    while g.num_edges() < m:
+        a, b = (int(x) for x in rng.randint(0, n, 2))
+        if a != b and (str(a), str(b)) not in g.edges:
+            g.add_edge(nodes[a], nodes[b], 3)
+    got = G.edge_flow_device(g.tensors(), device="cuda")
+    G.assign_edge_flow(g, exact=True)
+    want = np.array([e.flow for e in g.edges.values()])
+    rel = np.abs(got.astype(np.float64) - want) / np.abs(want)
+    rtol = 1e-6  # float32: exact integer sums, a few roundings of 2^-24
+    if not (rel <= rtol).all():
+        raise AssertionError(f"edge flow on the card: max relative error "
+                             f"{rel.max():.3e} > rtol {rtol}")
+    say(f"edge_flow_device on the card, {m} edges: max relative error "
+        f"{rel.max():.3e} against the float64 host path (rtol {rtol})")
+
+
+def repeat_cell(rec: dict) -> tuple:
+    """The repeat cell (tools/repeat_workload: 1,024 nodes in 32 groups
+    sharing an 80-bp motif, max_dup 32 > 16) through infer_pe_links on the
+    card, dense (stats_mode="auto") and sparse: the classic join, both
+    runs' write_pe_files output equal to the JAX record; then dup_scan at
+    the cell's shape. Returns (the dense run's launches, the check)."""
+    import torch
+
+    from tools.repeat_workload import repeat_workload, workload_digests
+    from vstrains_tpu_torch.core.fastq import ReadPairBatch, _pack
+    from vstrains_tpu_torch.ops import pe_infer as P
+
+    t0 = time.time()
+    refs, fwd, rve, k = repeat_workload(**rec["generator"]["kwargs"])
+    if workload_digests(refs, fwd, rve) != rec["inputs"]:
+        raise AssertionError("repeat: generated inputs differ from the "
+                             "JAX record's")
+    fc, fl = _pack([x.encode() for x in fwd])
+    rc, rl = _pack([x.encode() for x in rve])
+    reads = ReadPairBatch(fc, fl, rc, rl, 0, 0, len(fl))
+    gen_s = time.time() - t0
+    t0 = time.time()
+    table = P.build_kmer_table(refs, k + 1)
+    N, batch = table.num_nodes, rec["batch_size"]
+    say(f"repeat cell: {N} nodes, {reads.num_pairs} pairs, generated in "
+        f"{gen_s:.1f} s; table {table.num_entries} entries, max_dup "
+        f"{table.max_dup} (> {P._SORTFILL_MAX_DUP}: the classic join), built "
+        f"in {time.time() - t0:.4f} s; dense budget "
+        f"{P.dense_budget_rows(N)} rows >= batch {batch}")
+    if table.max_dup <= P._SORTFILL_MAX_DUP or batch > P.dense_budget_rows(N):
+        raise AssertionError("repeat: the cell should be dense and past the "
+                             "packed probe's 16 ranks")
+    ids = [str(i) for i in range(N)]
+    log, messages = _keep_log("chip_smoke.repeat")
+    launches = None
+    for engine, stats_mode, on, off, kind in (
+            ("dense", "auto",
+             ("window_hashes", "dup_scan", "stats_accum", "pair_counts"),
+             ("sort_rows",), P.PEResult),
+            ("sparse", "sparse", ("window_hashes", "dup_scan", "sort_rows"),
+             ("stats_accum", "pair_counts"), P.PESparseResult)):
+        def run(stats_mode=stats_mode):
+            torch.cuda.synchronize()
+            t = time.time()
+            res = P.infer_pe_links(ids, refs, reads, k, batch_size=batch,
+                                   stats_mode=stats_mode, table=table,
+                                   logger=log, device="cuda")
+            torch.cuda.synchronize()
+            return res, time.time() - t
+        messages.clear()
+        torch.cuda.reset_peak_memory_stats()
+        got, (res, sec) = count_launches(f"repeat {engine}", run, on, off)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if not isinstance(res, kind):
+            raise AssertionError(f"repeat: the {engine} engine did not run")
+        out = os.path.join(WORK, f"repeat_{engine}")
+        os.makedirs(out, exist_ok=True)
+        P.write_pe_files(res, os.path.join(out, "pe_info"),
+                         os.path.join(out, "st_info"))
+        check_digests(f"repeat {engine}", out, rec["outputs"])
+        retries = [m for m in messages if "overflowed" in m]
+        extra = (f"; sparse path {json.dumps(sparse_run_shape(messages))}, "
+                 f"cap retries {len(retries)} {retries}"
+                 if engine == "sparse" else "")
+        say(f"repeat {engine}: {reads.num_pairs} pairs in {sec:.4f} s = "
+            f"{reads.num_pairs / sec:.1f} pairs/s; peak device memory "
+            f"{peak:.0f} MiB; files byte-equal to the JAX record{extra}")
+        if engine == "dense":
+            launches = got
+    check = dup_scan_compare("repeat cell", classic_inputs(
+        table, reads, batch, k + 1), table.max_dup, N)
+    torch.cuda.empty_cache()
+    return launches, check
+
+
+def cell_300k(rec: dict, rng) -> list:
+    """The N = 300,000 cell (`bench.synth_workload`, past the packed
+    probe's 2^18 node ids): infer_pe_links(stats_mode="auto") routes it to
+    the sparse engine and the classic join. A checked run on the first
+    65,536 pairs against the JAX record, the path's kernels against their
+    plain versions at that run's shapes, then the timed run on every
+    pair."""
+    import torch
+
+    from bench import synth_workload
+    from tools.repeat_workload import workload_digests
+    from vstrains_tpu_torch.core.fastq import ReadPairBatch, _pack
+    from vstrains_tpu_torch.ops import pe_infer as P
+
+    t0 = time.time()
+    refs, fwd, rve, k = synth_workload(**rec["generator"]["kwargs"])
+    gen_s = time.time() - t0
+    t0 = time.time()
+    if workload_digests(refs, fwd, rve) != rec["inputs"]:
+        raise AssertionError("300k: generated inputs differ from the JAX "
+                             "record's")
+    digest_s = time.time() - t0
+    t0 = time.time()
+    fc, fl = _pack([x.encode() for x in fwd])
+    rc, rl = _pack([x.encode() for x in rve])
+    del fwd, rve
+    pack_s = time.time() - t0
+    ids = [str(i) for i in range(len(refs))]
+    n_all = len(fl)
+    t0 = time.time()
+    table = P.build_kmer_table(refs, k + 1)
+    build_s = time.time() - t0
+    N = table.num_nodes
+    batch = rec["batch_size"]
+    if P._sortfill_node_bits(N) is not None or not \
+            batch > P.dense_budget_rows(N):
+        raise AssertionError("300k: should be past the packing and the "
+                             "dense budget")
+    say(f"300k cell: {N} nodes, {n_all} pairs; host seconds: generate "
+        f"{gen_s:.2f}, input digests {digest_s:.2f}, pack {pack_s:.2f}, "
+        f"table {build_s:.2f} ({table.num_entries} entries padded to "
+        f"{table.h1_biased.size}, max_dup {table.max_dup})")
+    log, messages = _keep_log("chip_smoke.r300k")
+
+    def engine(n):
+        reads = ReadPairBatch(fc[:n], fl[:n], rc[:n], rl[:n], 0, 0, n)
+        torch.cuda.synchronize()
+        t = time.time()
+        res = P.infer_pe_links(ids, refs, reads, k, batch_size=batch,
+                               stats_mode="auto", table=table, logger=log,
+                               device="cuda")
+        torch.cuda.synchronize()
+        return res, time.time() - t
+
+    n_chk = rec["checked_pairs"]
+    launches, (res, sec) = count_launches(
+        "300k checked run", lambda: engine(n_chk),
+        ("window_hashes", "dup_scan", "sort_rows"),
+        ("stats_accum", "pair_counts"))
+    if not isinstance(res, P.PESparseResult):
+        raise AssertionError("300k: auto routing did not pick the sparse "
+                             "engine")
+    out = os.path.join(WORK, "r300k_out")
+    os.makedirs(out, exist_ok=True)
+    P.write_pe_files_sparse(res, os.path.join(out, "pe_info"),
+                            os.path.join(out, "st_info"))
+    check_digests("300k checked run", out, rec["outputs"])
+    shape = sparse_run_shape(messages)
+    say(f"300k checked run: {n_chk} pairs in {sec:.3f} s; pe_info/st_info "
+        f"byte-equal to the JAX record ({rec['probe_mode']} probe there, "
+        f"the join here); sparse path {json.dumps(shape)}")
+    reads_all = ReadPairBatch(fc, fl, rc, rl, 0, 0, n_all)
+    checks = sparse_path_kernels("N=300k", reads_all, k + 1, shape, rng,
+                                 force_bytes=True)
+    checks.append(dup_scan_compare(
+        "N=300k sparse", classic_inputs(table, reads_all, shape["batch"],
+                                        k + 1), shape["depth"], N,
+        iters=10))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    messages.clear()
+    res, sec = engine(n_all)
+    retries = [m for m in messages if "overflowed" in m]
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    batch = sparse_run_shape(messages)["batch"]
+    if not res.pair_counts.size:
+        raise AssertionError("300k timed run: no sparse links")
+    say(f"300k timed run: {n_all} pairs in {sec:.4f} s = {n_all / sec:.1f} "
+        f"pairs/s; table build {build_s:.4f} s; {-(-n_all // batch)} "
+        f"batches of {batch}; peak device memory {peak:.0f} MiB; cap retries "
+        f"{len(retries)}; {res.pair_keys.size} PE links, "
+        f"{res.short_keys.size} same-end links; launches of the checked "
+        f"run {json.dumps(launches)}")
+    return checks
+
+
 _KERNEL_NAMES = ("pair_counts_kernel", "pack_words", "sort_rows_net",
                  "sort_tile", "sort_global_stage", "stats_accum_shared",
-                 "stats_accum_global", "window_hashes_kernel")
+                 "stats_accum_global", "window_hashes_kernel",
+                 "dup_scan_kernel")
 
 
 def kernel_name(mangled: str) -> str:
@@ -789,18 +1189,23 @@ def kernel_name(mangled: str) -> str:
     m = re.search(r"window_hashes_kernelILb([01])E", mangled)
     if m:
         return f"window_hashes_kernel<{('bytes', 'wire')[int(m.group(1))]}>"
+    m = re.search(r"dup_scan_kernelI([jl])E", mangled)
+    if m:
+        return f"dup_scan_kernel<{'uint32' if m.group(1) == 'j' else 'int64'}>"
     return next((n for n in _KERNEL_NAMES if n in mangled), mangled[:60])
 
 
 def ptxas_summary(log: str) -> list:
     """One line per compiled kernel: ptxas's registers, barriers and
     spills."""
+    import re
     parts = {}
     name = None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = kernel_name(line.split("'")[1])
-        elif name and ("registers" in line or "spill" in line):
+        elif name and re.search(r"Used \d+ registers|bytes stack frame",
+                                line):
             parts.setdefault(name, []).append(
                 line.split("info    :")[-1].strip())
     return [f"ptxas {n}: {'; '.join(p)}" for n, p in parts.items()]
@@ -827,6 +1232,8 @@ def sass_summary(lib_path: str) -> list:
             keys = ("LDS", "STS", "STG", "STG.128", "IMAD", "BAR")
         elif name.startswith(("pair_counts", "sort_rows_net")):
             keys = ("HGMMA", "IGMMA", "SHFL", "LDS", "STS", "BAR")
+        elif name.startswith("dup_scan"):
+            keys = ("LDG", "STG", "IMAD", "BAR")
         else:
             continue
         ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
@@ -882,9 +1289,12 @@ def main() -> int:
         "match")
 
     # 3. kernels vs plain versions
+    import numpy as np
     kres = kernel_phase(os.path.join(
         hiv_data, "assembly_graph_after_simplification.gfa"))
     ragged_shapes()
+    say(f"dup_scan ragged shapes: {dup_scan_ragged(np.random.RandomState(6))}"
+        " kernel checks bit-equal to plain")
 
     # 4. synth slice
     syn = expected["synth"]
@@ -908,22 +1318,26 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     launches, wall = count_launches(
         "hiv dense", lambda: run_cli(hiv, hiv_data, hiv_out),
-        ("window_hashes", "stats_accum", "pair_counts"), ("sort_rows",))
+        ("window_hashes", "stats_accum", "pair_counts"),
+        ("sort_rows", "dup_scan"))
     say(f"hiv: port CLI {wall:.2f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     check_digests("HIV output", hiv_out, hiv["outputs"])
     with open(os.path.join(hiv_out, "timings.json")) as fh:
         timings = json.load(fh)
     stages = {s["stage"]: s["seconds"] for s in timings["stages"]}
-    used = None
+    used = engine_s = None
     with open(os.path.join(hiv_out, "vstrains.log")) as fh:
         for line in fh:
             if "reads: used=" in line:
                 used = int(line.split("used=")[1].split(",")[0])
+            if "PE engine: " in line:
+                engine_s = float(line.split(" in ")[-1].split()[0])
     say(f"hiv stages (s): {json.dumps(stages)}")
     say(f"hiv PE stage: {used} read pairs in {stages['pe_inference']:.3f} s"
         f" = {used / stages['pe_inference']:.1f} reads/s (pairs per "
-        "second, FASTQ load and table build included)")
+        "second, FASTQ load and table build included); engine (probe_mode="
+        f"sort, table prebuilt) {engine_s:.4f} s")
     rep = nga50_report(load_fasta(os.path.join(hiv_out, "strain.fasta")),
                        load_fasta(os.path.join(hiv_data,
                                                "true_strains.fasta")),
@@ -935,20 +1349,28 @@ def main() -> int:
     say(f"hiv: outputs byte-equal to the JAX record; NGA50 per strain "
         f"{json.dumps(nga)}")
 
+    # 5b. the same graph and reads in every probe mode; the graph passes
+    view, hiv_dup = hiv_classic_phase(hiv, hiv_data, hiv_out)
+    graph_phase(view)
+
     # 6. HIV through the sparse engine
-    import numpy as np
     sparse_launches, sparse_checks = hiv_sparse_phase(
         hiv, hiv_data, np.random.RandomState(2))
 
     # 7. the N = 50,000 cell
     c50 = cell_50k(expected["r50k"], np.random.RandomState(3))
+
+    # 8. the repeat cell, dense and sparse; 9. the N = 300,000 cell
+    rep_launches, kres["dup_scan"] = repeat_cell(expected["repeat"])
+    c300 = cell_300k(expected["r300k"], np.random.RandomState(4))
     launches["sort_rows"] = sparse_launches["sort_rows"]
-    # each kernel's line: its main-path shape (the HIV dense run's, and
-    # for sort_rows the N = 50k tail's (key, val) sort), its other shapes
-    # under "also"
+    launches["dup_scan"] = rep_launches["dup_scan"]
+    # each kernel's line: its main-path shape (the HIV dense run's; for
+    # sort_rows the N = 50k tail's (key, val) sort; for dup_scan the
+    # repeat cell's dense run), its other shapes under "also"
     kres["sort_rows"] = next(c for c in c50 if c["kernel"] == "sort_rows")
     others = kres["also"] + sparse_checks + [
-        c for c in c50 if c is not kres["sort_rows"]]
+        c for c in c50 if c is not kres["sort_rows"]] + hiv_dup + c300
     keys = ("shape", "ms", "plain_ms", "library_ms", "library", "bound_ms",
             "bound_by")
     kernels = []

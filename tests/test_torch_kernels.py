@@ -154,8 +154,12 @@ def test_cpu_wrappers_do_not_count_launches():
     key = torch.from_numpy(_node_slots(rng, 4, 5, 2, 9))
     ck.sort_rows(key, key.clone())
     ck.sort_rows(key)
+    tab = torch.arange(16, dtype=torch.int32)
+    win = torch.zeros((4, 5), dtype=torch.int32)
+    ck.dup_scan(win, win, torch.ones((4, 5), dtype=torch.bool), win, tab,
+                tab, tab, 3, 9)
     assert ck.LAUNCHES == {"window_hashes": 0, "stats_accum": 0,
-                           "pair_counts": 0, "sort_rows": 0}
+                           "pair_counts": 0, "sort_rows": 0, "dup_scan": 0}
     assert [k["name"] for k in ck.KERNELS] == list(ck.LAUNCHES)
 
 
@@ -179,3 +183,7 @@ def test_non_cpu_tensors_never_fall_back():
         ck.sort_rows(key)
     with pytest.raises(ValueError):
         ck.sort_rows(key, torch.zeros((4, 8), dtype=torch.int32))
+    tab = torch.zeros(16, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        ck.dup_scan(key, key, torch.zeros((4, 8), dtype=torch.bool), key,
+                    tab, tab, tab, 2, 9)

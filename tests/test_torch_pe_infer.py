@@ -95,12 +95,8 @@ def test_wire_and_byte_feeds_agree():
     refs = _random_refs(rng, 4, [90, 100, 110, 120])
     fwd, rve = _sample_reads(rng, refs, 120, 32, k)
     batch = _port_batch(_make_batch(fwd, rve, k + 1))
-    table = TP.build_kmer_table(refs, k + 1)
-    nb = TP._sortfill_node_bits(4)
-    tab = TP._DeviceTable(
-        torch.from_numpy(table.h1_biased),
-        torch.from_numpy(TP._build_sortfill_payloads(table, nb)),
-        torch.from_numpy(table.seq_lens), nb, k + 1, 4)
+    tab = TP._device_table(TP.build_kmer_table(refs, k + 1), "sortfill",
+                           "cpu")
     T = max(batch.fwd_codes.shape[1], batch.rve_codes.shape[1])
     accs = []
     for force_bytes in (False, True):
@@ -270,34 +266,6 @@ def test_pe_files_and_stores_match_jax(tmp_path):
     assert dict(sp_t) == dict(sp_j) and dict(dc_t) == dict(dc_j)
     pt = TP.process_pe_info(ids, *paths["t"])
     assert pt == JP.process_pe_info(ids, *paths["j"])
-
-
-@pytest.mark.parametrize("kw,match", [
-    # the JAX sparse engine serves an explicit 'sortfill' probe with its
-    # classic join
-    (dict(stats_mode="sparse", probe_mode="sortfill"), "classic sort join"),
-    (dict(probe_mode="lookup"), "lookup"),
-    (dict(probe_mode="searchsorted"), "searchsorted"),
-    (dict(probe_mode="sortjoin"), "sortjoin"),
-])
-def test_unported_paths_raise(kw, match):
-    rng = np.random.RandomState(1)
-    refs = _random_refs(rng, 3, [60, 70, 80])
-    fwd, rve = _sample_reads(rng, refs, 20, 30, 11)
-    batch = _make_batch(fwd, rve, 12)
-    with pytest.raises(TP.NotPortedError, match=match):
-        _port(["a", "b", "c"], refs, batch, 11, **kw)
-
-
-def test_classic_join_graph_raises():
-    """max_dup > 16 needs the classic sort join, which is not ported."""
-    _, refs = _dup_graph(41, 24, motif_len=30, tail=50)
-    assert TP.build_kmer_table(refs, 12).max_dup > TP._SORTFILL_MAX_DUP
-    rng = np.random.RandomState(0)
-    fwd, rve = _sample_reads(rng, refs, 20, 30, 11)
-    with pytest.raises(TP.NotPortedError, match="classic sort join"):
-        _port([str(i) for i in range(24)], refs,
-              _make_batch(fwd, rve, 12), 11)
 
 
 def test_cuda_device_without_cuda_raises():

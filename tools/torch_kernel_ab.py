@@ -16,7 +16,12 @@ redesigns at the shapes its paths give them:
     the paths', at 128 pairs of T = 30,000;
   * pair_counts at the HIV dense batch (B = 16,384, N = 773);
   * sort_rows, (key, val) and key-only, at the N = 50k sparse tail
-    (32,768 x 285) and the HIV sparse tail (65,536 x 402).
+    (32,768 x 285) and the HIV sparse tail (65,536 x 402);
+  * dup_scan, where both checkouts have it: at the repeat cell's first
+    batch (tools/repeat_workload, 2B = 32,768, K = 95, D = max_dup = 32,
+    a 1 M-entry table that sits in L2) and at the N = 300k cell's shape
+    (K = 95, D = 4) over a random sorted table of 2^27 entries (out of
+    L2) whose windows are drawn from it, 10% of them misses.
 
 Inputs are made from fixed numpy seeds, so both checkouts see the same
 data. Each shape is timed with this checkout's `chip_smoke.cuda_ms` both
@@ -26,7 +31,7 @@ than its wrapper's host time is timed back to back) and "host-paced"
 base, this, this, base; the result (the card's name and power limit,
 every turn's times and each shape's mean per checkout) is printed as one
 JSON line and written to PATH when given, with the SASS instruction
-counts of each checkout's window_hashes kernels
+counts of each checkout's window_hashes and dup_scan kernels
 (`chip_smoke.sass_summary`).
 """
 
@@ -105,6 +110,35 @@ for R, C in ((32768, 285), (65536, 402)):
                            .astype(np.int32)).to(dev)
     time_both(f"sort_rows (key, val) {R}x{C}", lambda: ck.sort_rows(key, val))
     time_both(f"sort_rows key-only {R}x{C}", lambda: ck.sort_rows(key))
+del key, val
+if hasattr(ck, "dup_scan"):
+    from tools.repeat_workload import repeat_workload
+    refs, fwd, rve, k = repeat_workload(n_pairs=16384)
+    from vstrains_tpu_torch.core.fastq import ReadPairBatch, _pack
+    fc, fl = _pack([x.encode() for x in fwd])
+    rc, rl = _pack([x.encode() for x in rve])
+    table = P.build_kmer_table(refs, k + 1)
+    args = smoke.classic_inputs(table, ReadPairBatch(fc, fl, rc, rl, 0, 0,
+                                                     len(fl)), 16384, k + 1)
+    R, K = args[0].shape
+    time_both(f"dup_scan repeat {R}x{K} D={table.max_dup}",
+              lambda: ck.dup_scan(*args, table.max_dup, table.num_nodes))
+    del args
+    gen = torch.Generator(device=dev).manual_seed(27)
+    M, D, N = 2**27, 4, 300000
+    t1, t2, tn = (torch.randint(lo_, hi_, (M,), generator=gen, device=dev,
+                                dtype=torch.int32)
+                  for lo_, hi_ in ((-2**31, 2**31 - 1), (-2**31, 2**31 - 1),
+                                   (0, N)))
+    t1 = torch.sort(t1).values
+    pick = torch.randint(0, M, (R, K), generator=gen, device=dev)
+    q1, h2 = t1[pick], t2[pick]
+    miss = torch.rand((R, K), generator=gen, device=dev) < 0.1
+    q1 = torch.where(miss, q1 ^ 0x5A5A, q1)
+    valid = torch.rand((R, K), generator=gen, device=dev) < 0.97
+    lo = torch.searchsorted(t1, q1.reshape(-1)).to(torch.int32).reshape(R, K)
+    time_both(f"dup_scan large table {R}x{K} D={D} M=2^27",
+              lambda: ck.dup_scan(q1, h2, valid, lo, t1, t2, tn, D, N))
 print(json.dumps(out))
 """
 
@@ -130,7 +164,8 @@ def main(argv=None) -> int:
     turns = [(name, turn(roots[name]))
              for name in ("base", "this", "this", "base")]
     mean = {name: {k: sum(t[k] for n, t in turns if n == name) / 2
-                   for k in turns[0][1]} for name in roots}
+                   for k in next(t for n, t in turns if n == name)}
+            for name in roots}
     from chip_smoke import sass_summary
     sass = {}
     for name, root in roots.items():
@@ -138,7 +173,8 @@ def main(argv=None) -> int:
                                       "libvt_kernels_*.so"))
         lib = max(libs, key=os.path.getmtime)
         sass[name] = [line for line in sass_summary(lib)
-                      if line.startswith("sass window_hashes")]
+                      if line.startswith(("sass window_hashes",
+                                          "sass dup_scan"))]
     res = {"card": smi, "turns": turns, "mean_ms": mean, "sass": sass}
     line = json.dumps(res)
     print(line)

@@ -15,7 +15,22 @@ Generates the two datasets the port is held to, runs the JAX CLI
     0), packed as tools/realistic_50k.py packs it; the JAX engine
     (`infer_pe_links`, stats_mode="auto", which routes this N to its
     sparse engine) runs on the first 262,144 pairs in this process, and
-    the record holds the digests of its `write_pe_files_sparse` files.
+    the record holds the digests of its `write_pe_files_sparse` files;
+  * "repeat": the repeat cell, `tools/repeat_workload.repeat_workload`
+    (1,024 nodes of 400 bp in 32 groups that share an 80-bp motif, so
+    max_dup is about 32 and the engine takes its classic sort join;
+    262,144 pairs of 150 bp; seed 5), all pairs through `infer_pe_links`
+    (stats_mode="auto", which keeps N = 1,024 dense at batch 16,384);
+    the record holds its `write_pe_files` digests;
+  * "r300k": `bench.synth_workload` with 300,000 nodes of 200 bp (past
+    the packed probe's 2^18 node ids: the sparse engine and the classic
+    probe) and 1,048,576 pairs, seed 0; the first 65,536 pairs through
+    `infer_pe_links(probe_mode="lookup")`, whose matrices the JAX tests
+    hold equal to the sort join's and which skips the join's per-batch
+    argsort of the ~134 M padded table entries; `write_pe_files_sparse`
+    digests.
+The repeat and r300k records also hold the digests of their generated
+inputs (`tools/repeat_workload.workload_digests`).
 
 Both generators run in a child process with PYTHONHASHSEED=0:
 `hivsim._build_unitigs` numbers its unitigs in the iteration order of a
@@ -32,7 +47,7 @@ told apart from a port fault), runs the port CLI and compares the output
 digests.
 
 Usage:  JAX_PLATFORMS=cpu python tools/torch_port_expect.py [--workdir DIR]
-        [--only synth|hiv|r50k]
+        [--only synth|hiv|r50k|repeat|r300k]
 """
 
 from __future__ import annotations
@@ -63,6 +78,12 @@ HIV_BATCH = 16384
 R50K_KW = dict(n_nodes=50000, node_len=200, n_pairs=1_048_576, seed=0)
 R50K_CHECKED_PAIRS = 262_144
 R50K_BATCH = 16384
+REPEAT_KW = dict(n_groups=32, group_size=32, motif_len=80, tail_len=320,
+                 n_pairs=262_144, read_len=150, k=55, seed=5)
+REPEAT_BATCH = 16384
+R300K_KW = dict(n_nodes=300_000, node_len=200, n_pairs=1_048_576, seed=0)
+R300K_CHECKED_PAIRS = 65_536
+R300K_BATCH = 16384
 
 
 def sha256_file(path: str) -> str:
@@ -221,13 +242,89 @@ def record_r50k(workdir: str) -> dict:
     }
 
 
+def _record_engine(name: str, workdir: str, generator: dict, refs, fwd, rve,
+                   k: int, checked: int, batch_size: int, writer: str,
+                   probe_mode: str, engine: str) -> dict:
+    """The JAX engine (stats_mode="auto") on the first `checked` pairs of
+    a generated workload; the digests of the `writer` files and of the
+    inputs."""
+    import logging
+
+    from tools.repeat_workload import workload_digests
+    from vstrains_tpu.core.fastq import ReadPairBatch, _pack
+    from vstrains_tpu.ops import pe_infer as P
+
+    inputs = workload_digests(refs, fwd, rve)
+    fc, fl = _pack([s.encode() for s in fwd[:checked]])
+    rc, rl = _pack([s.encode() for s in rve[:checked]])
+    ids = [str(i) for i in range(len(refs))]
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    t0 = time.time()
+    res = P.infer_pe_links(ids, refs, ReadPairBatch(fc, fl, rc, rl, 0, 0,
+                                                    len(fl)),
+                           k, batch_size=batch_size, stats_mode="auto",
+                           probe_mode=probe_mode)
+    sparse = isinstance(res, P.PESparseResult)
+    if sparse != (engine == "sparse"):
+        raise SystemExit(f"{name}: the JAX engine did not take its "
+                         f"{engine} path")
+    print(f"# {name}: JAX engine {time.time() - t0:.1f}s", file=sys.stderr)
+    out_dir = os.path.join(workdir, f"{name}_out")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = [os.path.join(out_dir, f) for f in ("pe_info", "st_info")]
+    getattr(P, writer)(res, *paths)
+    nm = res.pair_counts if sparse else res.node_mat
+    sm = res.short_counts if sparse else res.short_mat
+    return {
+        "generator": generator,
+        "inputs": inputs,
+        "checked_pairs": checked,
+        "batch_size": batch_size,
+        "kmer_size": k,
+        "probe_mode": probe_mode,
+        "stats_mode": "auto",
+        "engine": engine,
+        "writer": writer,
+        "outputs": {os.path.basename(p): sha256_file(p) for p in paths},
+        "nonzero_pairs": {"pe_info": int((nm != 0).sum()),
+                          "st_info": int((sm != 0).sum())},
+    }
+
+
+def record_repeat(workdir: str) -> dict:
+    from tools.repeat_workload import repeat_workload
+    from vstrains_tpu.ops.pe_infer import build_kmer_table
+    refs, fwd, rve, k = repeat_workload(**REPEAT_KW)
+    max_dup = build_kmer_table(refs, k + 1).max_dup
+    rec = _record_engine(
+        "repeat", workdir, {"function": "tools.repeat_workload."
+                                        "repeat_workload",
+                            "kwargs": REPEAT_KW,
+                            "packing": "vstrains_tpu.core.fastq._pack"},
+        refs, fwd, rve, k, REPEAT_KW["n_pairs"], REPEAT_BATCH,
+        "write_pe_files", "sort", "dense")
+    rec["max_dup"] = max_dup
+    return rec
+
+
+def record_r300k(workdir: str) -> dict:
+    from bench import synth_workload
+    refs, fwd, rve, k = synth_workload(**R300K_KW)
+    return _record_engine(
+        "r300k", workdir, {"function": "bench.synth_workload",
+                           "kwargs": R300K_KW,
+                           "packing": "vstrains_tpu.core.fastq._pack"},
+        refs, fwd, rve, k, R300K_CHECKED_PAIRS, R300K_BATCH,
+        "write_pe_files_sparse", "lookup", "sparse")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workdir", default=None,
                     help="where datasets and outputs go [default: a "
                          "fresh temporary directory]")
-    ap.add_argument("--only", choices=["synth", "hiv", "r50k"],
-                    default=None)
+    ap.add_argument("--only", choices=["synth", "hiv", "r50k", "repeat",
+                                       "r300k"], default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     workdir = args.workdir or tempfile.mkdtemp(prefix="torch_port_expect_")
@@ -242,9 +339,14 @@ def main(argv=None) -> int:
         rec["hiv"] = record_hiv(workdir)
     if args.only in (None, "r50k"):
         rec["r50k"] = record_r50k(workdir)
+    if args.only in (None, "repeat"):
+        rec["repeat"] = record_repeat(workdir)
+    if args.only in (None, "r300k"):
+        rec["r300k"] = record_r300k(workdir)
     rec["compared_outputs"] = list(OUTPUT_FILES)
     rec["recorded_with"] = ("vstrains_tpu on the CPU: the CLI for synth "
-                           "and hiv, infer_pe_links for r50k")
+                           "and hiv, infer_pe_links for r50k, repeat and "
+                           "r300k")
     with open(OUT_JSON, "w") as fh:
         json.dump(rec, fh, indent=1, sort_keys=True)
         fh.write("\n")

@@ -127,6 +127,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                            p],
         "vt_sort_rows": [p, p, i64, i64, p, p, p, p],
         "vt_sort_rows_uses_network": [i64],
+        "vt_dup_scan": [*[p] * 7, i64, i64, i64, i64, p, p],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

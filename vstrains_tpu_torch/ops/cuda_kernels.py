@@ -1,4 +1,4 @@
-"""The PE engine's four hand-written CUDA kernels, each beside its plain
+"""The PE engine's five hand-written CUDA kernels, each beside its plain
 PyTorch version.
 
   * window_hashes_wire / window_hashes_bytes: csrc/window_hashes.cu,
@@ -10,7 +10,11 @@ PyTorch version.
   * sort_rows: csrc/sort_rows.cu, replacing
     pallas_sort.py::sort_rows_pallas (the sparse engine's row sorts;
     key-only on the transpose, the column sorter prototype
-    tools/colsort_proto.py::sort_cols_pallas).
+    tools/colsort_proto.py::sort_cols_pallas);
+  * dup_scan: csrc/dup_scan.cu, the classic probe's duplicate-run scan,
+    the port's own kernel for an XLA stage of the JAX package
+    (pe_infer.py::_gather_node_slots / _sparse_expand_matches; no Pallas
+    kernel there).
 
 A wrapper takes its plain version only when its tensors lie on the CPU
 (the CPU tests, `--device cpu`). On a CUDA tensor it launches the kernel,
@@ -35,7 +39,7 @@ _M32 = 0xFFFFFFFF
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"window_hashes": 0, "stats_accum": 0,
-                            "pair_counts": 0, "sort_rows": 0}
+                            "pair_counts": 0, "sort_rows": 0, "dup_scan": 0}
 
 # what chip_smoke.py reports for each kernel
 KERNELS = [
@@ -51,6 +55,10 @@ KERNELS = [
     {"name": "sort_rows", "route": "cuda",
      "source": "vstrains_tpu_torch/csrc/sort_rows.cu",
      "replaces": "vstrains_tpu/ops/pallas_sort.py:75"},
+    {"name": "dup_scan", "route": "cuda",
+     "source": "vstrains_tpu_torch/csrc/dup_scan.cu",
+     "replaces": "vstrains_tpu/ops/pe_infer.py:739",
+     "note": "port-only: the XLA stage _gather_node_slots, no TPU kernel"},
 ]
 
 
@@ -426,3 +434,66 @@ def sort_rows(key: torch.Tensor, val: Optional[torch.Tensor] = None):
                 None if val_out is None else val_out.data_ptr(),
                 None if scratch is None else scratch.data_ptr())
     return key_out if val is None else (key_out, val_out)
+
+
+# --------------------------------------------------------------------------
+# classic probe duplicate-run scan (csrc/dup_scan.cu)
+# --------------------------------------------------------------------------
+
+def dup_scan_plain(q1: torch.Tensor, h2: torch.Tensor, valid: torch.Tensor,
+                   lo: torch.Tensor, tab_h1: torch.Tensor,
+                   tab_h2: torch.Tensor, tab_node: torch.Tensor, depth: int,
+                   num_nodes: int) -> torch.Tensor:
+    """Per-slot matched node ids, int32 [R, K * depth] (slot k * depth + d:
+    window k at duplicate rank d; num_nodes for a miss), by the JAX
+    package's duplicate-scan rule (_dup_scan_stats_impl,
+    _sparse_expand_matches): loc = min(lo, M - 1), idx = min(loc + d,
+    M - 1), a match needs valid, equal h1 and h2 at idx, and loc + d < M,
+    M being the padded table length. It equals _gather_node_slots (which
+    starts from lo itself) wherever lo < M, and where lo = M (a window the
+    bucket lookup did not find) unless the last entry's h1 equals q1."""
+    R, K = q1.shape
+    M = tab_h1.shape[0]
+    d = torch.arange(depth, dtype=torch.int64, device=q1.device)
+    pos = lo.to(torch.int64).clamp(max=M - 1)[:, :, None] + d
+    idx = pos.clamp(max=M - 1)
+    m = (valid[:, :, None] & (tab_h1[idx] == q1[:, :, None])
+         & (tab_h2[idx] == h2[:, :, None]) & (pos < M))
+    return torch.where(m, tab_node[idx], num_nodes).to(
+        torch.int32).reshape(R, K * depth)
+
+
+def dup_scan(q1: torch.Tensor, h2: torch.Tensor, valid: torch.Tensor,
+             lo: torch.Tensor, tab_h1: torch.Tensor, tab_h2: torch.Tensor,
+             tab_node: torch.Tensor, depth: int,
+             num_nodes: int) -> torch.Tensor:
+    """Per-slot matched node ids int32 [R, K * depth] of windows (q1, h2
+    int32 [R, K], valid bool [R, K]) scanned from their table positions lo
+    (int32 [R, K]) over the padded table (int32 [M] each): the contract of
+    dup_scan_plain."""
+    tensors = (q1, h2, valid, lo, tab_h1, tab_h2, tab_node)
+    if not _on_cuda(*tensors):
+        return dup_scan_plain(*tensors, depth, num_nodes)
+    for t, name in zip((q1, h2, lo), ("q1", "h2", "lo")):
+        _expect(t, name, torch.int32, 2)
+    _expect(valid, "valid", torch.bool, 2)
+    for t, name in zip((tab_h1, tab_h2, tab_node),
+                       ("tab_h1", "tab_h2", "tab_node")):
+        _expect(t, name, torch.int32, 1)
+    R, K = q1.shape
+    M = tab_h1.shape[0]
+    if (h2.shape != q1.shape or valid.shape != q1.shape
+            or lo.shape != q1.shape or tab_h2.shape[0] != M
+            or tab_node.shape[0] != M):
+        raise ValueError(f"shapes q1{tuple(q1.shape)} h2{tuple(h2.shape)} "
+                         f"valid{tuple(valid.shape)} lo{tuple(lo.shape)} "
+                         f"table {M}/{tab_h2.shape[0]}/{tab_node.shape[0]}")
+    if depth < 1 or M < 1:
+        raise ValueError(f"depth {depth} and table length {M} must be >= 1")
+    out = torch.empty((R, K * depth), dtype=torch.int32, device=q1.device)
+    if out.numel():
+        _launch("dup_scan", _lib().vt_dup_scan, q1.device, q1.data_ptr(),
+                h2.data_ptr(), valid.data_ptr(), lo.data_ptr(),
+                tab_h1.data_ptr(), tab_h2.data_ptr(), tab_node.data_ptr(),
+                R * K, depth, M, num_nodes, out.data_ptr())
+    return out

@@ -6,7 +6,11 @@ Port of `vstrains_tpu/ops/graph_ops.py`:
     `index_add_` segment sums and one fused elementwise pass over all
     edges, in float32 on the chosen device;
   * coverage-threshold histogram (reference: VStrains_Preprocess.py:37-70),
-    host numpy as before.
+    host numpy as before;
+  * DAG check as iterative source elimination (Kahn) over the dense edge
+    list, `index_add_` in-degrees until the live set stops changing — the
+    device analogue of the reference's recursive DFS (Utilities:1158-1202,
+    `algos/dag.graph_is_DAG` on the host); no pipeline stage calls it.
 
 Graphs here are small (10^2..10^4 nodes), so `assign_edge_flow` keeps the
 exact float64 host path below 20,000 edges and uses the device pass above
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from vstrains_tpu_torch.core.graph import GraphTensors, GraphView
+from vstrains_tpu_torch.device import resolve_device, run_device
 
 _DEVICE_EDGE_CUTOFF = 20_000
 
@@ -38,12 +43,12 @@ def _edge_flow(dp: torch.Tensor, edge_src: torch.Tensor,
     return 0.5 * (dv / out_sum[edge_src] * du + du / in_sum[edge_dst] * dv)
 
 
-def edge_flow_device(t: GraphTensors) -> np.ndarray:
-    """Device path: all edge flows in one pass (float32), on torch's
-    default device, which the pipeline sets to the run's device."""
+def edge_flow_device(t: GraphTensors, device="cuda") -> np.ndarray:
+    """Device path: all edge flows in one pass (float32) on `device`
+    ("cuda" raises without a card; "cpu" for the host)."""
     if t.num_edges == 0:
         return np.zeros(0, dtype=np.float32)
-    dev = torch.get_default_device()
+    dev = resolve_device(device)
     flows = _edge_flow(
         torch.as_tensor(t.dp, dtype=torch.float32, device=dev),
         torch.as_tensor(t.edge_src, dtype=torch.int64, device=dev),
@@ -52,11 +57,15 @@ def edge_flow_device(t: GraphTensors) -> np.ndarray:
     return flows.cpu().numpy()
 
 
-def assign_edge_flow(view: GraphView, exact: Optional[bool] = None) -> None:
+def assign_edge_flow(view: GraphView, exact: Optional[bool] = None,
+                     device=None) -> None:
     """Write coverage-proportional flow onto every live edge.
 
     Parity: VStrains_Utilities.py:14-31. exact=None auto-selects host
-    float64 for small graphs, device segment-sums for large ones.
+    float64 for small graphs, device segment-sums for large ones. The
+    device pass runs on `device`; None means the run's device as the
+    pipeline set it (`device.run_on`; the graph reloads in core/gfa.py call
+    this without one), and "cuda" outside a run.
     """
     if exact is None:
         exact = view.num_edges() < _DEVICE_EDGE_CUTOFF
@@ -72,7 +81,8 @@ def assign_edge_flow(view: GraphView, exact: Optional[bool] = None) -> None:
             ]))
     else:
         t = view.tensors()
-        flows = edge_flow_device(t)
+        flows = edge_flow_device(t, run_device() if device is None
+                                 else device)
         for e, f in zip(view.edges.values(), flows):
             e.flow = float(f)
 
@@ -133,3 +143,28 @@ def threshold_estimation(dps: np.ndarray, logger=None) -> float:
             else:
                 break
     return float(ratio * med)
+
+
+def graph_is_dag_device(t: GraphTensors, device="cuda") -> bool:
+    """True iff the graph of `t` has no cycle, by iterative source
+    elimination on `device`: each round keeps the nodes that still have
+    a live in-edge and the edges whose source survived, until the live
+    set stops changing; a DAG empties it. The JAX package's
+    `_dag_check_kernel` (a `while_loop` over `segment_sum` in-degrees)."""
+    if t.num_edges == 0:
+        return True
+    dev = resolve_device(device)
+    src = torch.as_tensor(t.edge_src, dtype=torch.int64, device=dev)
+    dst = torch.as_tensor(t.edge_dst, dtype=torch.int64, device=dev)
+    live = torch.ones(t.num_nodes, dtype=torch.bool, device=dev)
+    edge_live = live[src] & live[dst]
+    while True:
+        indeg = torch.zeros(t.num_nodes, dtype=torch.int32,
+                            device=dev).index_add_(0, dst,
+                                                   edge_live.to(torch.int32))
+        new_live = live & (indeg > 0)
+        edge_live = edge_live & new_live[src]
+        changed = bool((new_live != live).any())
+        live = new_live
+        if not changed:
+            return not bool(live.any())

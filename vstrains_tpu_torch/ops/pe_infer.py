@@ -10,13 +10,20 @@ Device (torch), per batch of B read pairs stacked into one (2B, T)
 end-batch, forward reads first:
   1. unpack the wire batch and hash every (k+1)-window  — CUDA kernel
      `window_hashes` (ops/cuda_kernels.py, csrc/window_hashes.cu);
-  2. probe the table: `torch.searchsorted` of each window's biased h1 into
-     the sorted table, then one row gather of the packed payloads
-     (tag | top h2 bits | node id per duplicate rank). A window matches an
-     entry when h1 is equal and the top 31 - node_bits bits of h2 are
-     equal — exactly the accept rule of the JAX package's sortfill probe
-     (`_sortfill_node_slots`, docs/DIVERGENCES.md #12), for any of its
-     table strides;
+  2. probe the table for each window's per-rank node ids. The packed
+     probe ("sortfill", every graph within its packing): `torch.searchsorted`
+     of each window's biased h1 into the sorted table, then one row gather
+     of the packed payloads (tag | top h2 bits | node id per duplicate
+     rank); a window matches an entry when h1 is equal and the top
+     31 - node_bits bits of h2 are equal — exactly the accept rule of the
+     JAX package's sortfill probe (`_sortfill_node_slots`,
+     docs/DIVERGENCES.md #12), for any of its table strides. The classic
+     probe (graphs beyond the packing: more than 2^18 nodes or duplicate
+     runs longer than 16; the 'sortjoin', 'lookup' and 'searchsorted'
+     modes): each window's first table position with h1 >= q1 (`_join_lo`,
+     or the bucket index's `_lookup_lo`), then the duplicate-run scan with
+     the full 32-bit h1 and h2 equality — CUDA kernel `dup_scan`
+     (csrc/dup_scan.cu);
   3. per-(read, node) hit count and lowest window index — CUDA kernel
      `stats_accum`;
   4. the reference's saturation test in exact int32 arithmetic
@@ -35,9 +42,11 @@ compact into a (2B, cap) list, and the host expands them into COO link
 keys (`PESparseResult`).
 
 On CPU tensors each kernel wrapper runs its plain torch version instead
-(`--device cpu`, the CPU tests). Paths of the JAX engine not ported yet
-raise NotPortedError: the classic sort join (graphs beyond the payload
-packing) and the 'lookup' / 'searchsorted' / 'sortjoin' probe modes.
+(`--device cpu`, the CPU tests). Every probe mode and stats mode of the
+JAX engine is served, with the JAX engine's routing and bit-equal
+results; the JAX package's TPU-only machinery (its compile race, the
+small-workload CPU fallback, the opt-in Pallas hash path and the int32
+accumulator spill) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -62,10 +71,6 @@ _LOG = logging.getLogger(__name__)
 
 _INF = np.int32(2**31 - 1)
 _BIAS = np.uint32(0x80000000)
-
-
-class NotPortedError(NotImplementedError):
-    """A path of the JAX engine that the PyTorch port does not have yet."""
 
 
 # --------------------------------------------------------------------------
@@ -107,8 +112,7 @@ _PARALLEL_SORT_MIN = 1 << 20  # entries; below this the serial sort wins
 def _finish_kmer_table(h1, h2, node, offset, max_dup, num_nodes,
                        split_len, seq_lens, pad_to_bucket):
     """Common tail of build_kmer_table: bias/bitcast the sorted entry
-    arrays and pad to the shape bucket. (The JAX package's direct-address
-    bucket index serves only its 'lookup' probe, which is not ported.)"""
+    arrays and pad to the shape bucket."""
     h1b = (h1 ^ _BIAS).view(np.int32)
     h2b = h2.view(np.int32)
     if pad_to_bucket and h1.size:
@@ -123,6 +127,26 @@ def _finish_kmer_table(h1, h2, node, offset, max_dup, num_nodes,
                      max_dup=max_dup, num_nodes=num_nodes,
                      split_len=split_len, seq_lens=seq_lens,
                      num_entries=int(h1.size))
+
+
+def _bucket_index(table: KmerTable):
+    """The direct-address index that the 'lookup' probe reads, built when
+    that probe runs (the JAX package's bucket_index=True table fields):
+    (starts int32 [2^b + 1], shift, depth) over the real entries, so the
+    padding cannot inflate the depth. starts[x] = #entries whose unsigned
+    h1 >> shift < x (a bincount prefix sum); depth = the largest bucket's
+    population, the find steps a window needs to reach its equal-h1 run."""
+    h1 = table.h1_biased[:table.num_entries].view(np.uint32) ^ _BIAS
+    if not h1.size:
+        return np.zeros(2, np.int32), 32, 1
+    bits = max(10, min(26, int(np.ceil(np.log2(2 * h1.size)))))
+    shift = 32 - bits
+    counts = np.bincount((h1 >> np.uint32(shift)).astype(np.int64),
+                         minlength=(1 << bits))
+    starts = np.empty((1 << bits) + 1, dtype=np.int64)
+    starts[0] = 0
+    np.cumsum(counts, out=starts[1:])
+    return starts.astype(np.int32), shift, max(int(counts.max()), 1)
 
 
 def build_kmer_table(seqs: Sequence[str], split_len: int,
@@ -314,7 +338,8 @@ def build_kmer_table(seqs: Sequence[str], split_len: int,
 # node_bits = max(9, bits(N-1)) node id, with h2_bits = 31 - node_bits.
 # The secondary-hash check narrows from 32 to h2_bits bits
 # (docs/DIVERGENCES.md #12). Graphs beyond 2^18 nodes, or with duplicate
-# h1 runs longer than 16, need the classic join, which is not ported.
+# h1 runs longer than 16, take the classic probe (_join_lo / _lookup_lo
+# and the dup_scan kernel).
 # --------------------------------------------------------------------------
 
 _SORTFILL_MAX_NODE_BITS = 18
@@ -408,22 +433,96 @@ def _saturate(cnt: torch.Tensor, kmin: torch.Tensor, lens: torch.Tensor,
     return hit & ((cnt >= sat_thresh) | (cnt * rl >= exp_num))
 
 
+def _join_lo(q1: torch.Tensor, tab_h1: torch.Tensor) -> torch.Tensor:
+    """Each window's first table position with h1 >= q1, int32 [R, K]: a
+    binary search. It equals the JAX package's sort-merge join
+    (_hash_join_impl, _join_from_q1: the count of table entries before the
+    query in the stable argsort of [queries, table]). The 'searchsorted'
+    probe (_probe_stats) scans from this same left bound; its `idx < hi`
+    mask is the scan's equal-h1 test, since the table is sorted."""
+    return torch.searchsorted(tab_h1, q1.reshape(-1), side="left").to(
+        torch.int32).reshape(q1.shape)
+
+
+def _lookup_lo(q1: torch.Tensor, bstarts: torch.Tensor,
+               tab_h1: torch.Tensor, shift: int,
+               probe_depth: int) -> torch.Tensor:
+    """The JAX package's two-phase direct-address lookup (_hash_lookup_impl,
+    _lookup_from_q1), int32 [R, K]: one gather into the bucket index at
+    the window's bucket (its unsigned h1 >> shift, taken in int64), then
+    probe_depth find steps for the first equal h1 in the bucket; a window
+    not found keeps M, the padded table length."""
+    M = tab_h1.shape[0]
+    h1 = q1.to(torch.int64) + 2**31  # undo the sign bias: h1 as unsigned
+    base = bstarts[h1 >> shift].to(torch.int64)
+    found = torch.full_like(base, M)
+    for p in range(probe_depth):
+        pos = base + p
+        idx = pos.clamp(max=M - 1)
+        hit = (tab_h1[idx] == q1) & (pos < M) & (found == M)
+        found = torch.where(hit, idx, found)
+    return found.to(torch.int32)
+
+
 @dataclass
 class _DeviceTable:
-    h1: torch.Tensor        # int32 [M] sorted biased h1
-    pays: torch.Tensor      # int32 [M, D] packed payloads
+    """The table arrays one probe reads, on the run's device: the packed
+    probe carries h2 and node inside its payloads, and only the lookup
+    builds and reads the bucket index (the JAX engine uploads the same
+    subsets)."""
+    probe: str              # "sortfill", "join" or "lookup"
+    h1: torch.Tensor        # int32 [M] sorted biased h1, padded
     seq_lens: torch.Tensor  # int32 [N]
-    node_bits: int
     split_len: int
     num_nodes: int
+    depth: int              # duplicate ranks a window scans
+    pays: Optional[torch.Tensor] = None     # sortfill: int32 [M, depth]
+    node_bits: int = 9
+    h2: Optional[torch.Tensor] = None       # join, lookup: int32 [M]
+    node: Optional[torch.Tensor] = None     # join, lookup: int32 [M]
+    bstarts: Optional[torch.Tensor] = None  # lookup: int32 [2^b + 1]
+    shift: int = 32
+    scan_depth: int = 1
+
+
+def _device_table(table: KmerTable, probe: str, dev) -> _DeviceTable:
+    """Upload what `probe` reads of a host table."""
+    tab = _DeviceTable(probe, torch.from_numpy(table.h1_biased).to(dev),
+                       torch.from_numpy(table.seq_lens).to(dev),
+                       table.split_len, table.num_nodes, table.max_dup)
+    if probe == "sortfill":
+        tab.node_bits = _sortfill_node_bits(table.num_nodes)
+        tab.pays = torch.from_numpy(
+            _build_sortfill_payloads(table, tab.node_bits)).to(dev)
+        tab.depth = tab.pays.shape[1]
+        return tab
+    tab.h2 = torch.from_numpy(table.h2).to(dev)
+    tab.node = torch.from_numpy(table.node).to(dev)
+    if probe == "lookup":
+        starts, tab.shift, tab.scan_depth = _bucket_index(table)
+        tab.bstarts = torch.from_numpy(starts).to(dev)
+    return tab
+
+
+def _node_slots(q1, h2, valid, tab: _DeviceTable) -> torch.Tensor:
+    """Per-slot matched node ids of an end-batch, int32 [R, K * depth]
+    (k-major slots, sentinel num_nodes for misses), by the table's probe."""
+    if tab.probe == "sortfill":
+        return _sortfill_probe(q1, h2, valid, tab.h1, tab.pays,
+                               tab.node_bits, tab.num_nodes)
+    if tab.probe == "lookup":
+        lo = _lookup_lo(q1, tab.bstarts, tab.h1, tab.shift, tab.scan_depth)
+    else:
+        lo = _join_lo(q1, tab.h1)
+    return ck.dup_scan(q1, h2, valid, lo, tab.h1, tab.h2, tab.node,
+                       tab.depth, tab.num_nodes)
 
 
 def _batch_core(q1, h2, valid, lens, tab: _DeviceTable, acc_nm, acc_sm):
     """Probe + stats + saturation + pair counts of one stacked end-batch,
     added into the int64 accumulators in place."""
-    node_t = _sortfill_probe(q1, h2, valid, tab.h1, tab.pays,
-                             tab.node_bits, tab.num_nodes)
-    cnt, kmin = ck.stats_accum(node_t, tab.pays.shape[1], tab.num_nodes)
+    node_t = _node_slots(q1, h2, valid, tab)
+    cnt, kmin = ck.stats_accum(node_t, tab.depth, tab.num_nodes)
     sat = _saturate(cnt, kmin, lens, tab.seq_lens, tab.split_len)
     B = sat.shape[0] // 2
     ck.pair_counts(sat[:B], sat[B:], acc_nm, acc_sm)
@@ -601,14 +700,15 @@ def _sparse_sat_tail(node_key, kidx_v, lens, seq_lens, split_len: int,
     return out, cand_ovf | ovf2, counts
 
 
-def _sparse_sortfill_core(q1, h2, valid, lens, tab: _DeviceTable,
-                          cap: int, cap_c: int):
+def _sparse_core(q1, h2, valid, lens, tab: _DeviceTable, cap: int,
+                 cap_c: int):
     """Probe + sparse tail of one stacked end-batch: (out [2B, cap]
-    saturated node ids ascending, -1 padded; overflow; counts)."""
+    saturated node ids ascending, -1 padded; overflow; counts). The probe's
+    slots in the tail's (node, k-index) form: the JAX package's
+    _sparse_expand_matches for the classic probe."""
     N = tab.num_nodes
-    depth = tab.pays.shape[1]
-    node_t = _sortfill_probe(q1, h2, valid, tab.h1, tab.pays,
-                             tab.node_bits, N)
+    depth = tab.depth
+    node_t = _node_slots(q1, h2, valid, tab)
     B2, R = node_t.shape
     matched = node_t < N
     node_key = torch.where(matched, node_t, _I32_MAX)
@@ -620,19 +720,18 @@ def _sparse_sortfill_core(q1, h2, valid, lens, tab: _DeviceTable,
                             cap_c=cap_c)
 
 
-def _stats_sparse_sortfill_wire(wire: torch.Tensor, T: int,
-                                tab: _DeviceTable, cap: int, cap_c: int):
+def _stats_sparse_wire(wire: torch.Tensor, T: int, tab: _DeviceTable,
+                      cap: int, cap_c: int):
     """The sparse per-batch pipeline fed by the compact wire format."""
     q1, h2, valid = ck.window_hashes_wire(wire, T, tab.split_len)
-    return _sparse_sortfill_core(q1, h2, valid, ck.wire_lens(wire), tab,
-                                 cap, cap_c)
+    return _sparse_core(q1, h2, valid, ck.wire_lens(wire), tab, cap, cap_c)
 
 
-def _stats_sparse_sortfill(codes: torch.Tensor, lens: torch.Tensor,
-                           tab: _DeviceTable, cap: int, cap_c: int):
+def _stats_sparse_bytes(codes: torch.Tensor, lens: torch.Tensor,
+                        tab: _DeviceTable, cap: int, cap_c: int):
     """The sparse per-batch pipeline fed by stacked byte codes."""
     q1, h2, valid = ck.window_hashes_bytes(codes, lens, tab.split_len)
-    return _sparse_sortfill_core(q1, h2, valid, lens, tab, cap, cap_c)
+    return _sparse_core(q1, h2, valid, lens, tab, cap, cap_c)
 
 
 # --------------------------------------------------------------------------
@@ -872,6 +971,34 @@ def dense_budget_rows(num_nodes: int) -> int:
     return max(512, (1_500_000_000 // (12 * (num_nodes + 1))) // 2)
 
 
+_PROBE_MODES = ("sort", "sortfill", "sortjoin", "lookup", "searchsorted")
+
+
+def _route_probe(probe_mode: str, sparse: bool, table: KmerTable,
+                 logger: logging.Logger) -> str:
+    """The JAX engine's probe choice, a function of the table alone (so
+    every device picks the same probe): "sortfill" (the packed probe),
+    "join" or "lookup". The packed probe needs node ids of at most 18
+    bits and duplicate runs of at most 16; the sparse engine takes it only
+    for "sort" (JAX infer_pe_links and _infer_pe_links_sparse).
+    "searchsorted" is an alias of "sortjoin" here: the JAX engine's
+    searchsorted probe scans from the join's left bound (_join_lo)."""
+    fits = (_sortfill_node_bits(table.num_nodes) is not None
+            and table.max_dup <= _SORTFILL_MAX_DUP)
+    if probe_mode == "lookup":
+        return "lookup"
+    if probe_mode == "sort" and fits:
+        return "sortfill"
+    if probe_mode == "sortfill" and not sparse:
+        if fits:
+            return "sortfill"
+        logger.warning("probe_mode=sortfill unsupported here (N=%d, "
+                       "max_dup=%d > %d or id overflow); using the classic "
+                       "sort join instead", table.num_nodes, table.max_dup,
+                       _SORTFILL_MAX_DUP)
+    return "join"
+
+
 def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
                    reads: ReadPairBatch, kmer_size: int,
                    batch_size: int = 16384,
@@ -887,13 +1014,21 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
     (PE_Inference.py:114). Below the dense/sparse cutover (or with
     stats_mode="dense") per-batch link counts accumulate in int64 device
     matrices and the result is a PEResult; above it (or with
-    stats_mode="sparse") the sparse engine returns a PESparseResult."""
+    stats_mode="sparse") the sparse engine returns a PESparseResult.
+
+    probe_mode (all give identical links, as in the JAX package): "sort"
+    takes the packed probe where the graph fits its packing and the
+    classic sort join elsewhere; "sortfill" asks for the packed probe
+    (the dense engine warns and joins beyond the packing; the sparse
+    engine always joins); "sortjoin" forces the join, and "searchsorted"
+    is its alias; "lookup" probes a bucket index of the table, built for
+    this call."""
     logger = logger or _LOG
     dev = resolve_device(device)
     split_len = kmer_size + 1
-    if probe_mode not in ("sort", "sortfill"):
-        raise NotPortedError(f"probe_mode={probe_mode!r} is not yet ported "
-                             "(the port has the sortfill probe only)")
+    if probe_mode not in _PROBE_MODES:
+        raise ValueError(f"probe_mode {probe_mode!r} is not one of "
+                         f"{_PROBE_MODES}")
     if table is None:
         table = build_kmer_table(seqs, split_len)
     elif table.split_len != split_len:
@@ -935,24 +1070,8 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
             "saturation range (~46 kb); this engine targets paired-end "
             "short reads")
 
-    # both engines probe with the packed payloads; beyond their packing
-    # (and for the sparse engine's explicit 'sortfill' request, which the
-    # JAX package serves with its classic join) the classic join is due
-    node_bits = _sortfill_node_bits(N)
-    if (node_bits is None or table.max_dup > _SORTFILL_MAX_DUP
-            or (sparse and probe_mode != "sort")):
-        raise NotPortedError(
-            f"the classic sort join is not yet ported (N={N}, max_dup="
-            f"{table.max_dup} > {_SORTFILL_MAX_DUP}, node ids beyond "
-            f"{_SORTFILL_MAX_NODE_BITS} bits, or the sparse engine with "
-            f"probe_mode={probe_mode!r})")
-
-    tab = _DeviceTable(
-        h1=torch.from_numpy(table.h1_biased).to(dev),
-        pays=torch.from_numpy(_build_sortfill_payloads(table,
-                                                       node_bits)).to(dev),
-        seq_lens=torch.from_numpy(table.seq_lens).to(dev),
-        node_bits=node_bits, split_len=split_len, num_nodes=N)
+    tab = _device_table(table, _route_probe(probe_mode, sparse, table,
+                                            logger), dev)
     if sparse:
         return _infer_pe_links_sparse(ids, table, tab, reads, batch_size,
                                       logger)
@@ -993,8 +1112,9 @@ def _infer_pe_links_sparse(ids, table: KmerTable, tab: _DeviceTable,
                            reads: ReadPairBatch, batch_size: int,
                            logger: logging.Logger, cap: int = 16,
                            cap_c: int = 32) -> PESparseResult:
-    """Large-N engine: the same probe, sparse per-batch stats and host COO
-    accumulation; the footprint does not grow with N.
+    """Large-N engine: the same probes, sparse per-batch stats and host
+    COO accumulation; the footprint does not grow with N. The classic
+    probe takes the byte feed, as in the JAX package.
 
     Batch i's result is copied to the host behind its own kernels and
     read after batch i+1 is queued, so the device always has the next
@@ -1044,11 +1164,11 @@ def _sparse_run(tab: _DeviceTable, reads: ReadPairBatch, T: int,
 
     def queue(kind, payload):
         if kind == "wire":
-            out, ovf, _ = _stats_sparse_sortfill_wire(
+            out, ovf, _ = _stats_sparse_wire(
                 torch.from_numpy(payload).to(dev), T, tab, cap, cap_c)
         else:
             codes, lens = _stack_ends_np(*payload)
-            out, ovf, _ = _stats_sparse_sortfill(
+            out, ovf, _ = _stats_sparse_bytes(
                 torch.from_numpy(codes).to(dev),
                 torch.from_numpy(lens).to(dev), tab, cap, cap_c)
         if not on_cuda:
@@ -1085,7 +1205,8 @@ def _sparse_run(tab: _DeviceTable, reads: ReadPairBatch, T: int,
     # launches of a batch; sparse.wait = the host blocked on the device;
     # sparse.coo = host COO expansion of a pulled batch
     pending = None
-    batches = _wire_batches(reads, batch_size)
+    batches = _wire_batches(reads, batch_size,
+                            force_bytes=tab.probe != "sortfill")
     while True:
         with record_function("sparse.queue"):
             nxt = next(batches, None)

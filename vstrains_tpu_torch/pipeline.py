@@ -18,7 +18,8 @@ Stage structure parity with the reference (VStrains_SPAdes.py:25-280):
 
 `args.device` ("cuda" by default, or "cpu") is where every torch tensor of
 the run lives: the PE engine's batches and kernels, and the graph passes'
-device path, which reads torch's default device (set here for the run).
+device path (passed explicitly here; the graph reloads inside the
+algorithms read the run's device, set here with `device.run_on`).
 `args.resume` restarts from the most advanced completed checkpoint.
 Per-stage wall times land in <out>/timings.json (utils/tracing.py).
 """
@@ -50,7 +51,7 @@ from vstrains_tpu_torch.core.fastq import load_read_pairs
 from vstrains_tpu_torch.core.gfa import (load_flipped_gfa,
                                          store_reinit_graph, write_gfa)
 from vstrains_tpu_torch.core.pe_store import PEInfo
-from vstrains_tpu_torch.device import resolve_device
+from vstrains_tpu_torch.device import resolve_device, run_on
 from vstrains_tpu_torch.ops.graph_ops import (assign_edge_flow,
                                               threshold_estimation)
 from vstrains_tpu_torch.ops.pe_infer import (build_kmer_table,
@@ -82,7 +83,7 @@ def run(args, logger: logging.Logger = None) -> int:
         device = resolve_device(getattr(args, "device", "cuda"))
     except RuntimeError as exc:
         raise PipelineError(str(exc)) from exc
-    with torch.device(device):
+    with run_on(device):
         return _run(args, logger, device)
 
 
@@ -225,11 +226,14 @@ def _run(args, logger: logging.Logger, device: torch.device) -> int:
             logger.info("reads: used=%d, with_N=%d, short=%d",
                         reads.used_reads, reads.n_reads, reads.short_reads)
             table_thread.join()
+            t_engine = time.time()
             pe_result = infer_pe_links(
                 ids, seqs, reads, ksize,
                 batch_size=getattr(args, "pe_batch_size", 16384),
                 table=table_box.get("table"),
                 logger=logger, device=device)
+            logger.info("PE engine: %d pairs in %.4f s", reads.num_pairs,
+                        time.time() - t_engine)
             # aln file format: the reference's N^2-line files degenerate
             # to their nonzero lines on load (docs/DIVERGENCES.md #17),
             # so 'auto' switches to the sparse writer above 5,000 nodes
@@ -258,7 +262,7 @@ def _run(args, logger: logging.Logger, device: torch.device) -> int:
         contig_dict = st["contig_dict"]
         pe_info = PEInfo(st["pe_info"])
         view2 = load_flipped_gfa(f"{temp_dir}/gfa/es_graph_L2.gfa", logger)
-        assign_edge_flow(view2)
+        assign_edge_flow(view2, device=device)
     else:
         with timer.stage("edge_cleaning", logger):
             edge_cleaning(view1, contig_dict, pe_info, logger)
@@ -285,7 +289,7 @@ def _run(args, logger: logging.Logger, device: torch.device) -> int:
         pe_info = PEInfo(st["pe_info"])
         viewf = load_flipped_gfa(f"{temp_dir}/gfa/ckpt_disentangled.gfa",
                                  logger)
-        assign_edge_flow(viewf)
+        assign_edge_flow(viewf, device=device)
     else:
         logger.info("[stage] graph disentanglement")
         with timer.stage("disentanglement", logger):
