@@ -20,9 +20,10 @@ without the final result line):
      H100's published memory or int8 rate) and, where one PyTorch call
      computes the same function, that call's time; pair_counts also on
      all-ones masks; then the same check, untimed, at ragged shapes (for
-     dup_scan: synthetic padded tables with duplicate runs, scans that
-     start at or just before the table's end, queries equal to the
-     padding, all-invalid rows, D up to 64);
+     dup_stats and dup_scan: synthetic padded tables with duplicate runs,
+     scans that start at or just before the table's end, queries equal to
+     the padding, all-invalid rows, D up to 300, K past a block's
+     threads, N past the shared counters);
   4. the verify-recipe synthetic dataset through the port CLI on cuda:
      the strain set must equal the planted haplotypes and the output
      files the JAX package's bytes;
@@ -33,9 +34,12 @@ without the final result line):
      NGA50 printed, and the "sort" engine wall from the run's log; then
      that run's graph (gfa/s_graph_L1.gfa) and reads through
      `infer_pe_links` in each classic probe mode ("sortjoin", "lookup",
-     "searchsorted"): write_pe_files byte-equal to the HIV record's aln
-     files, dup_scan launched, engine wall and peak memory printed; dup_scan
-     at the HIV shapes (K = 201, D = 1, max_dup, 32); the graph passes on
+     "searchsorted"), three rounds of the three: dup_stats launched in
+     place of stats_accum, the first round's write_pe_files byte-equal
+     to the HIV record's aln files, every run's engine wall and the first
+     round's peak memory printed, then the device table's upload timed
+     alone; dup_stats at the HIV shapes (K = 201, D = 1,
+     max_dup, 32); the graph passes on
      the card (graph_is_dag_device against the host DFS before and after
      one back edge; edge_flow_device on 20,000 edges against the float64
      host path, rtol 1e-6);
@@ -57,17 +61,21 @@ without the final result line):
      1,024 nodes of 400 bp in 32 groups sharing an 80-bp motif, max_dup
      32, so the classic join; 262,144 pairs of 150 bp) through
      infer_pe_links dense and sparse, both write_pe_files outputs equal to
-     the JAX record "repeat"; dup_scan at its shape (2B = 32,768, K = 95,
-     D = 32), the kernels line's main shape for dup_scan;
+     the JAX record "repeat"; dup_stats at the dense run's shape (2B =
+     32,768, K = 95, D = 32, N = 1,024) and dup_scan at the sparse run's
+     (2B = 8,192), the kernels line's main shapes for both, with
+     stats_accum at the slot plane dup_stats replaces;
   9. the N = 300,000 cell (`bench.synth_workload`, 300,000 nodes of 200
      bp, past the packed probe's 2^18 node ids: the sparse engine and the
      classic join; 1,048,576 pairs, seed 0): host seconds of each set-up
      step, a checked run of 65,536 pairs against the JAX record "r300k",
      window_hashes, dup_scan and sort_rows at that run's shapes, then the
      timed run on every pair.
+dup_stats and dup_scan are timed beside a bound that counts each table
+entry their walks examine once (dup_table_bytes), printed.
 The build also prints ptxas's registers and spills per kernel and, from
-cuobjdump, the instruction counts that show the three redesigned
-kernels' designs and dup_scan's loads and stores. Every run above resets
+cuobjdump, the instruction counts that show the redesigned kernels'
+designs. Every run above resets
 the launch counts just before and checks just after that its path's
 kernels launched and no other path's did. The line before the last is a
 JSON object with each kernel's launches (each from the run of the path it
@@ -688,7 +696,7 @@ def hiv_sparse_phase(hiv: dict, hiv_data: str, rng) -> dict:
     launches, wall = count_launches(
         "hiv sparse", lambda: run_cli(hiv, hiv_data, out, pe_batch=pe_batch),
         ("window_hashes", "sort_rows"),
-        ("stats_accum", "pair_counts", "dup_scan"))
+        ("stats_accum", "pair_counts", "dup_scan", "dup_stats"))
     with open(os.path.join(out, "vstrains.log")) as fh:
         shape = sparse_run_shape(fh)
     say(f"hiv sparse: sparse PE stats path ran: {json.dumps(shape)}")
@@ -773,7 +781,7 @@ def cell_50k(rec: dict, rng) -> dict:
     launches, (res, sec) = count_launches(
         "50k checked run", lambda: engine(n_chk),
         ("window_hashes", "sort_rows"),
-        ("stats_accum", "pair_counts", "dup_scan"))
+        ("stats_accum", "pair_counts", "dup_scan", "dup_stats"))
     if not isinstance(res, P.PESparseResult):
         raise AssertionError("50k: auto routing did not pick the sparse "
                              "engine")
@@ -806,18 +814,76 @@ def cell_50k(rec: dict, rng) -> dict:
     return checks
 
 
-NO_LIBRARY_DUP = ("none: no single PyTorch call computes the duplicate-run "
-                  "scan's gathers and compares")
-def dup_bound(R: int, K: int, D: int) -> dict:
-    """Each window's q1, h2, lo (int32) and valid (uint8) read once and its
-    D slots (int32) written; the table gathers are not counted."""
-    return bound(R * K * 13 + R * K * D * 4)
+NO_LIBRARY_DUP = {
+    "dup_stats": "none: no single PyTorch call computes the duplicate-run "
+                 "walk and the two scatters (count and min)",
+    "dup_scan": "none: no single PyTorch call computes the duplicate-run "
+                "walk's gathers and compares"}
+L2_BYTES = 50e6      # the H100's L2 cache
+ENTRY_BYTES = 12     # a table entry's h1, h2 and node
+
+
+def dup_walk_entries(q1, valid, lo, tab_h1, depth: int):
+    """The table entries the classic kernels' walk examines for each
+    window, int64 [R, K]: from loc = min(lo, M - 1) through the first
+    entry whose h1 exceeds q1 (the equal-h1 run and one entry past it,
+    when lo is the join's bound), at most min(depth, M - loc); 0 for an
+    invalid window."""
+    import torch
+    M = tab_h1.shape[0]
+    loc = lo.to(torch.int64).clamp(max=M - 1)
+    hi = torch.searchsorted(tab_h1, q1.reshape(-1), side="right").reshape(
+        q1.shape)
+    n = torch.minimum((hi - loc).clamp(min=0) + 1, (M - loc).clamp(max=depth))
+    return torch.where(valid, n, 0)
+
+
+def dup_table_bytes(lo, n, M: int, l2_bytes: float = L2_BYTES) -> tuple:
+    """(distinct entries, bytes, how counted) of the table the walks need,
+    each entry read once however many windows walk it: the union of the
+    entries [loc, loc + n) over the windows (n from dup_walk_entries), 12
+    bytes an entry where the table at 12 bytes an entry fits the L2, else
+    for each maximal run of L adjacent entries in the union the ceil(12 L
+    / 32) sectors of 32 bytes that hold it at best."""
+    import torch
+    loc = lo.to(torch.int64).clamp(max=M - 1).reshape(-1)
+    n = n.reshape(-1)
+    loc, n = loc[n > 0], n[n > 0]
+    edge = torch.zeros(M + 1, dtype=torch.int32, device=loc.device)
+    ones = torch.ones_like(loc, dtype=torch.int32)
+    edge.index_add_(0, loc, ones)
+    edge.index_add_(0, loc + n, -ones)
+    idx = torch.nonzero(torch.cumsum(edge[:M], 0, dtype=torch.int32) > 0)
+    idx = idx.reshape(-1)
+    if M * ENTRY_BYTES <= l2_bytes:
+        return idx.numel(), ENTRY_BYTES * idx.numel(), "bytes (in L2)"
+    # the runs of adjacent entries: their first positions in idx, and the end
+    first = torch.nonzero(torch.diff(idx, prepend=idx[:1] - 2) != 1)
+    cuts = torch.cat([first.reshape(-1), idx.new_tensor([idx.numel()])])
+    runs = torch.diff(cuts)
+    sectors = int(((ENTRY_BYTES * runs + 31) // 32).sum())
+    return idx.numel(), 32 * sectors, "32-byte sectors (past L2)"
+
+
+def dup_bound(win, tab_h1, depth: int, out_bytes: int) -> dict:
+    """The classic kernels' bound: each window's q1, h2, lo (int32) and
+    valid (uint8) read once, the outputs written once, and each table
+    entry that some valid window's walk examines read once
+    (dup_table_bytes)."""
+    R, K = win[0].shape
+    n = dup_walk_entries(win[0], win[2], win[3], tab_h1, depth)
+    entries, table_bytes, how = dup_table_bytes(win[3], n, tab_h1.shape[0])
+    res = bound(R * K * 13 + out_bytes + table_bytes)
+    res.update(entries_walked=int(n.sum()), distinct_entries=entries,
+               valid_windows=int(win[2].sum()), table_bytes=table_bytes,
+               table_counted_as=how)
+    return res
 
 
 def classic_inputs(table, reads, batch: int, split_len: int):
     """The classic probe's operands on the card for the first `batch`
-    pairs of `reads` (stacked, byte feed): (q1, h2, valid, lo, tab_h1,
-    tab_h2, tab_node), lo from the join."""
+    pairs of `reads` (stacked, byte feed): the windows (q1, h2, valid, lo;
+    lo from the join) and the device table as the path builds it."""
     import torch
 
     from vstrains_tpu_torch.ops import cuda_kernels as ck
@@ -826,70 +892,115 @@ def classic_inputs(table, reads, batch: int, split_len: int):
     codes, lens = (torch.from_numpy(x).cuda()
                    for x in P._stack_ends_np(*payload))
     q1, h2, valid = ck.window_hashes_bytes(codes, lens, split_len)
-    tab = [torch.from_numpy(a).cuda()
-           for a in (table.h1_biased, table.h2, table.node)]
-    return (q1, h2, valid, P._join_lo(q1, tab[0]), *tab)
+    tab = P._device_table(table, "join", torch.device("cuda"))
+    return (q1, h2, valid, P._classic_lo(q1, tab)), tab
 
 
-def dup_scan_compare(label: str, args, depth: int, N: int,
-                     iters: int = 20) -> dict:
-    """dup_scan against dup_scan_plain on the same operands, timed."""
+def dup_calls(kernel: str, win, table, depth: int, N: int):
+    """(kernel call, plain call, output bytes) of dup_stats or dup_scan on
+    the windows and the table record."""
     from vstrains_tpu_torch.ops import cuda_kernels as ck
-    R, K = args[0].shape
-    shape = f"{label}, R={R} K={K} D={depth}"
-    res = compare(f"dup_scan ({shape})",
-                  lambda: ck.dup_scan(*args, depth, N),
-                  lambda: ck.dup_scan_plain(*args, depth, N), iters=iters,
-                  bound_=dup_bound(R, K, depth), library=NO_LIBRARY_DUP)
-    hits = int((ck.dup_scan_plain(*args, depth, N) < N).sum())
-    say(f"dup_scan ({shape}): {hits} of {R * K * depth} slots matched")
-    return dict(res, kernel="dup_scan", shape=shape)
+    R, K = win[0].shape
+    if kernel == "dup_stats":
+        return (lambda: ck.dup_stats(*win, table, depth, N),
+                lambda: ck.dup_stats_plain(*win, table, depth, N),
+                R * N * 8)
+    return (lambda: ck.dup_scan(*win, table, depth),
+            lambda: ck.dup_scan_plain(*win, table, depth), R * K * depth * 8)
 
 
-def dup_scan_ragged(rng) -> int:
-    """dup_scan against its plain version, untimed, on synthetic padded
-    tables with duplicate runs: rows not a whole number of the kernel's
-    blocks, windows whose scan starts at M (a lookup miss) or 3 entries
-    before it, windows equal to the padding (h1 = INT32_MAX, h2 = -1),
-    all-invalid rows, an unpadded table, and D up to 64."""
+def dup_compare(kernel: str, label: str, win, tab, depth: int,
+                iters: int = 20) -> dict:
+    """dup_stats or dup_scan against its plain version on the same
+    operands and the table record the path passes, timed beside the
+    bound."""
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    R, K = win[0].shape
+    N = tab.num_nodes
+    shape = f"{label}, R={R} K={K} D={depth}" + (
+        f" N={N}" if kernel == "dup_stats" else "")
+    kern, plain, out_bytes = dup_calls(kernel, win, tab.rec, depth, N)
+    b = dup_bound(win, tab.h1, depth, out_bytes)
+    res = compare(f"{kernel} ({shape})", kern, plain, iters=iters,
+                  bound_=b, library=NO_LIBRARY_DUP[kernel])
+    hits = (int(plain()[0].sum()) if kernel == "dup_stats" else
+            int((plain()[0] != ck.INF).sum()))
+    say(f"{kernel} ({shape}): {b['entries_walked']} table entries walked "
+        f"by {b['valid_windows']} valid windows "
+        f"({b['entries_walked'] / max(b['valid_windows'], 1):.4f} each), "
+        f"{b['distinct_entries']} distinct of {tab.h1.shape[0]}: "
+        f"{b['table_bytes']} table bytes in the bound, counted as "
+        f"{b['table_counted_as']}; {hits} of {R * K * depth} slots "
+        "matched")
+    return dict(res, kernel=kernel, shape=shape)
+
+
+# (R, K, D, real entries, M, N) of the classic kernels' ragged checks:
+# rows not a whole number of a block's, D up to 64 and past dup_scan's
+# 128-window staging (D = 300), K = 1 and K past a dup_stats block's 1,024
+# threads, an unpadded table, and N past its shared counters (N = 30,000:
+# global atomics)
+CLASSIC_RAGGED = ((1001, 37, 3, 1000, 1024, 50), (5, 201, 64, 1000, 1024, 773),
+                  (1, 1, 1, 1, 1024, 50), (257, 95, 40, 2048, 2048, 1024),
+                  (3, 9, 17, 600, 1024, 50), (3, 1100, 2, 900, 1024, 50),
+                  (2, 4, 300, 700, 1024, 50),
+                  (4099, 95, 32, 5000, 8192, 6000),
+                  (64, 95, 4, 1000, 1024, 30000))
+
+
+def classic_ragged_case(rng, R: int, K: int, m_real: int, M: int, N: int):
+    """A synthetic padded table with duplicate runs of any length (sorted
+    h1; padding h1 = INT32_MAX, h2 = -1, node 0) and windows drawn from
+    it: 20% misses, 10% scans from M (a lookup miss), the last row's from
+    M - 3, queries equal to the padding, an all-invalid first row. Returns
+    numpy (q1, h2, valid, lo) [R, K] and (h1, h2, node) [M]."""
     import numpy as np
+    h1 = np.sort(rng.randint(-2**31, 2**31 - 1, m_real))
+    for i in range(1, m_real):  # duplicate runs of any length
+        if rng.rand() < 0.7:
+            h1[i] = h1[i - 1]
+    h1 = np.concatenate([h1, np.full(M - m_real, 2**31 - 1)])
+    h2 = np.concatenate([rng.randint(-1, 3, m_real), np.full(M - m_real, -1)])
+    node = np.concatenate([rng.randint(0, N, m_real),
+                           np.zeros(M - m_real, np.int64)])
+    q1 = h1[rng.randint(0, M, (R, K))]
+    miss = rng.rand(R, K) < 0.2
+    q1[miss] = rng.randint(-2**31, 2**31 - 1, int(miss.sum()))
+    hq = rng.randint(-1, 3, (R, K))
+    valid = rng.rand(R, K) < 0.9
+    if R > 1:
+        valid[0] = False
+    lo = np.searchsorted(h1, q1, side="left")
+    lo[rng.rand(R, K) < 0.1] = M
+    if R > 2:
+        lo[-1] = M - 3
+    i32 = [np.ascontiguousarray(a, dtype=np.int32)
+           for a in (q1, hq, lo, h1, h2, node)]
+    return (i32[0], i32[1], valid, i32[2]), tuple(i32[3:])
+
+
+def dup_ragged(rng) -> int:
+    """dup_stats and dup_scan against their plain versions, untimed, at
+    CLASSIC_RAGGED."""
     import torch
 
     from vstrains_tpu_torch.ops import cuda_kernels as ck
     n = 0
-    for R, K, D, m_real, M in ((1001, 37, 3, 1000, 1024),
-                               (5, 201, 64, 1000, 1024),
-                               (1, 1, 1, 1, 1024),
-                               (257, 95, 40, 2048, 2048),
-                               (3, 9, 17, 600, 1024)):
-        N = 50
-        h1 = np.sort(rng.randint(-2**31, 2**31 - 1, m_real))
-        for i in range(1, m_real):  # duplicate runs of any length
-            if rng.rand() < 0.7:
-                h1[i] = h1[i - 1]
-        h1 = np.concatenate([h1, np.full(M - m_real, 2**31 - 1)])
-        h2 = np.concatenate([rng.randint(-1, 3, m_real),
-                             np.full(M - m_real, -1)])
-        node = np.concatenate([rng.randint(0, N, m_real),
-                               np.zeros(M - m_real, np.int64)])
-        q1 = h1[rng.randint(0, M, (R, K))]
-        miss = rng.rand(R, K) < 0.2
-        q1[miss] = rng.randint(-2**31, 2**31 - 1, int(miss.sum()))
-        hq = rng.randint(-1, 3, (R, K))
-        valid = rng.rand(R, K) < 0.9
-        if R > 1:
-            valid[0] = False
-        lo = np.searchsorted(h1, q1, side="left")
-        lo[rng.rand(R, K) < 0.1] = M
-        if R > 2:
-            lo[-1] = M - 3
-        t = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).cuda()
-             for a in (q1, hq, lo, h1, h2, node)]
-        args = (t[0], t[1], torch.from_numpy(valid).cuda(), t[2], *t[3:])
-        max_abs_err(f"dup_scan R={R} K={K} D={D} M={M}",
-                    ck.dup_scan(*args, D, N), ck.dup_scan_plain(*args, D, N))
-        n += 1
+    for R, K, D, m_real, M, N in CLASSIC_RAGGED:
+        win, tab = classic_ragged_case(rng, R, K, m_real, M, N)
+        win = tuple(torch.from_numpy(a).cuda() for a in win)
+        rec = ck.table_record(*(torch.from_numpy(a).cuda() for a in tab))
+        for kernel in ("dup_stats", "dup_scan"):
+            kern, plain, _ = dup_calls(kernel, win, rec, D, N)
+            max_abs_err(f"{kernel} R={R} K={K} D={D} M={M} N={N}", kern(),
+                        plain())
+            n += 1
     return n
+
+
+# rounds of the three classic modes on the HIV graph, each timed, so that
+# a mode's engine wall is read beside its own spread
+CLASSIC_ROUNDS = 3
 
 
 def hiv_classic_phase(hiv: dict, hiv_data: str, hiv_out: str) -> tuple:
@@ -897,10 +1008,13 @@ def hiv_classic_phase(hiv: dict, hiv_data: str, hiv_out: str) -> tuple:
     pipeline's resume does) and reads (the pipeline's loader) through
     infer_pe_links in each classic probe mode on the card: "sortjoin",
     "lookup" (its bucket index built inside the call) and "searchsorted"
-    (the CLI run was "sort"). Each run's write_pe_files output must equal
-    the HIV record's aln/pe_info and aln/st_info; each run must launch
-    dup_scan and the dense kernels, and not sort_rows. Then dup_scan at
-    the HIV shapes. Returns (view, the dup_scan checks)."""
+    (the CLI run was "sort"), CLASSIC_ROUNDS rounds of the three, each
+    call timed. The first round's write_pe_files output must equal the
+    HIV record's aln/pe_info and aln/st_info; each run must launch
+    dup_stats, window_hashes and pair_counts, and not stats_accum,
+    dup_scan or sort_rows. Then the device table's upload alone, timed,
+    and dup_stats at the HIV shapes. Returns (view, the dup_stats
+    checks)."""
     import torch
 
     from vstrains_tpu_torch.core.fastq import load_read_pairs
@@ -920,33 +1034,58 @@ def hiv_classic_phase(hiv: dict, hiv_data: str, hiv_out: str) -> tuple:
         f"{table.num_entries} entries, max_dup {table.max_dup}, built in "
         f"{time.time() - t0:.4f} s")
     want = {"pe_info": hiv["outputs"]["aln/pe_info"],
-            "st_info": hiv["outputs"]["aln/st_info"]}
-    dense = ("window_hashes", "stats_accum", "pair_counts")
-    for mode in ("sortjoin", "lookup", "searchsorted"):
-        def run(mode=mode):
-            torch.cuda.synchronize()
-            t = time.time()
-            res = P.infer_pe_links(ids, seqs, reads, ksize, batch_size=16384,
-                                   probe_mode=mode, table=table,
-                                   device="cuda")
-            torch.cuda.synchronize()
-            return res, time.time() - t
-        torch.cuda.reset_peak_memory_stats()
-        _, (res, sec) = count_launches(f"hiv probe_mode={mode}", run,
-                                       dense + ("dup_scan",), ("sort_rows",))
-        peak = torch.cuda.max_memory_allocated() / 2**20
-        out = os.path.join(WORK, f"hiv_{mode}")
-        os.makedirs(out, exist_ok=True)
-        P.write_pe_files(res, os.path.join(out, "pe_info"),
-                         os.path.join(out, "st_info"))
-        check_digests(f"HIV probe_mode={mode}", out, want)
-        say(f"hiv probe_mode={mode}: engine {sec:.4f} s (table prebuilt), "
-            f"{reads.num_pairs / sec:.1f} pairs/s; peak device memory "
-            f"{peak:.0f} MiB; pe_info/st_info byte-equal to the JAX record")
-    args = classic_inputs(table, reads, 16384, ksize + 1)
-    checks = [dup_scan_compare(f"HIV D={d}", args, d, table.num_nodes)
+        "st_info": hiv["outputs"]["aln/st_info"]}
+    dense = ("window_hashes", "dup_stats", "pair_counts")
+    modes = ("sortjoin", "lookup", "searchsorted")
+    walls = {mode: [] for mode in modes}
+    peaks = {}
+    for rnd in range(CLASSIC_ROUNDS):
+        for mode in modes:
+            def run(mode=mode):
+                torch.cuda.synchronize()
+                t = time.time()
+                res = P.infer_pe_links(ids, seqs, reads, ksize,
+                                       batch_size=16384, probe_mode=mode,
+                                       table=table, device="cuda")
+                torch.cuda.synchronize()
+                return res, time.time() - t
+            torch.cuda.reset_peak_memory_stats()
+            _, (res, sec) = count_launches(
+                f"hiv probe_mode={mode}", run, dense,
+                ("stats_accum", "dup_scan", "sort_rows"))
+            walls[mode].append(sec)
+            if rnd:
+                continue
+            peaks[mode] = torch.cuda.max_memory_allocated() / 2**20
+            out = os.path.join(WORK, f"hiv_{mode}")
+            os.makedirs(out, exist_ok=True)
+            P.write_pe_files(res, os.path.join(out, "pe_info"),
+                             os.path.join(out, "st_info"))
+            check_digests(f"HIV probe_mode={mode}", out, want)
+    for mode in modes:
+        say(f"hiv probe_mode={mode}: engine (table prebuilt) "
+            f"{', '.join(f'{x:.4f}' for x in walls[mode])} s in "
+            f"{CLASSIC_ROUNDS} rounds of the three modes, min "
+            f"{reads.num_pairs / min(walls[mode]):.1f} pairs/s; peak device "
+            f"memory {peaks[mode]:.0f} MiB; pe_info/st_info byte-equal to "
+            "the JAX record (first round)")
+    # what each classic call spends uploading the table and building its
+    # record on the card, apart from the engine's batches
+    dev = torch.device("cuda")
+    up = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.time()
+        P._device_table(table, "join", dev)
+        torch.cuda.synchronize()
+        up.append(time.time() - t)
+    say(f"hiv classic device table (h1 and the [M, 4] record, "
+        f"{table.h1_biased.size} entries): "
+        f"{', '.join(f'{x:.4f}' for x in up)} s")
+    win, tab = classic_inputs(table, reads, 16384, ksize + 1)
+    checks = [dup_compare("dup_stats", f"HIV D={d}", win, tab, d)
               for d in sorted({1, table.max_dup, 32})]
-    del args
+    del win, tab
     torch.cuda.empty_cache()
     return view, checks
 
@@ -1004,12 +1143,16 @@ def repeat_cell(rec: dict) -> tuple:
     """The repeat cell (tools/repeat_workload: 1,024 nodes in 32 groups
     sharing an 80-bp motif, max_dup 32 > 16) through infer_pe_links on the
     card, dense (stats_mode="auto") and sparse: the classic join, both
-    runs' write_pe_files output equal to the JAX record; then dup_scan at
-    the cell's shape. Returns (the dense run's launches, the check)."""
+    runs' write_pe_files output equal to the JAX record; then dup_stats at
+    the dense run's shape, stats_accum at the slot plane it replaces there,
+    and dup_scan at the sparse run's shape. Returns (the dense run's
+    launches, the sparse run's, the dup_stats and dup_scan checks, the
+    stats_accum check)."""
     import torch
 
     from tools.repeat_workload import repeat_workload, workload_digests
     from vstrains_tpu_torch.core.fastq import ReadPairBatch, _pack
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
     from vstrains_tpu_torch.ops import pe_infer as P
 
     t0 = time.time()
@@ -1034,13 +1177,13 @@ def repeat_cell(rec: dict) -> tuple:
                              "packed probe's 16 ranks")
     ids = [str(i) for i in range(N)]
     log, messages = _keep_log("chip_smoke.repeat")
-    launches = None
+    launches = {}
     for engine, stats_mode, on, off, kind in (
-            ("dense", "auto",
-             ("window_hashes", "dup_scan", "stats_accum", "pair_counts"),
-             ("sort_rows",), P.PEResult),
+            ("dense", "auto", ("window_hashes", "dup_stats", "pair_counts"),
+             ("sort_rows", "stats_accum", "dup_scan"), P.PEResult),
             ("sparse", "sparse", ("window_hashes", "dup_scan", "sort_rows"),
-             ("stats_accum", "pair_counts"), P.PESparseResult)):
+             ("stats_accum", "pair_counts", "dup_stats"),
+             P.PESparseResult)):
         def run(stats_mode=stats_mode):
             torch.cuda.synchronize()
             t = time.time()
@@ -1061,18 +1204,34 @@ def repeat_cell(rec: dict) -> tuple:
                          os.path.join(out, "st_info"))
         check_digests(f"repeat {engine}", out, rec["outputs"])
         retries = [m for m in messages if "overflowed" in m]
-        extra = (f"; sparse path {json.dumps(sparse_run_shape(messages))}, "
-                 f"cap retries {len(retries)} {retries}"
-                 if engine == "sparse" else "")
+        extra = ""
+        if engine == "sparse":
+            shape = sparse_run_shape(messages)
+            extra = (f"; sparse path {json.dumps(shape)}, cap retries "
+                     f"{len(retries)} {retries}")
         say(f"repeat {engine}: {reads.num_pairs} pairs in {sec:.4f} s = "
             f"{reads.num_pairs / sec:.1f} pairs/s; peak device memory "
             f"{peak:.0f} MiB; files byte-equal to the JAX record{extra}")
-        if engine == "dense":
-            launches = got
-    check = dup_scan_compare("repeat cell", classic_inputs(
-        table, reads, batch, k + 1), table.max_dup, N)
+        launches[engine] = got
+    D = table.max_dup
+    win, tab = classic_inputs(table, reads, batch, k + 1)
+    stats = dup_compare("dup_stats", "repeat cell dense", win, tab, D)
+    # the slot plane dup_stats replaces, through the kernel that read it
+    node_key, _ = ck.dup_scan_plain(*win, tab.rec, D)
+    node_t = torch.where(node_key == ck.INF, N, node_key)
+    R, C = node_t.shape
+    plane = dict(compare(
+        f"stats_accum (repeat cell's slot plane, R={R} C={C} N={N})",
+        lambda: ck.stats_accum(node_t, D, N),
+        lambda: ck.stats_accum_plain(node_t, D, N),
+        bound_=bound(4 * R * C + 8 * R * N), library=NO_LIBRARY_STATS),
+        kernel="stats_accum", shape=f"repeat cell, R={R} C={C} N={N}")
+    del win, tab, node_key, node_t
+    win, tab = classic_inputs(table, reads, shape["batch"], k + 1)
+    scan = dup_compare("dup_scan", "repeat cell sparse", win, tab, D)
+    del win, tab
     torch.cuda.empty_cache()
-    return launches, check
+    return launches["dense"], launches["sparse"], stats, scan, plane
 
 
 def cell_300k(rec: dict, rng) -> list:
@@ -1133,7 +1292,7 @@ def cell_300k(rec: dict, rng) -> list:
     launches, (res, sec) = count_launches(
         "300k checked run", lambda: engine(n_chk),
         ("window_hashes", "dup_scan", "sort_rows"),
-        ("stats_accum", "pair_counts"))
+        ("stats_accum", "pair_counts", "dup_stats"))
     if not isinstance(res, P.PESparseResult):
         raise AssertionError("300k: auto routing did not pick the sparse "
                              "engine")
@@ -1149,10 +1308,10 @@ def cell_300k(rec: dict, rng) -> list:
     reads_all = ReadPairBatch(fc, fl, rc, rl, 0, 0, n_all)
     checks = sparse_path_kernels("N=300k", reads_all, k + 1, shape, rng,
                                  force_bytes=True)
-    checks.append(dup_scan_compare(
-        "N=300k sparse", classic_inputs(table, reads_all, shape["batch"],
-                                        k + 1), shape["depth"], N,
-        iters=10))
+    win, tab = classic_inputs(table, reads_all, shape["batch"], k + 1)
+    checks.append(dup_compare("dup_scan", "N=300k sparse", win, tab,
+                              shape["depth"], iters=10))
+    del win, tab
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     messages.clear()
@@ -1180,7 +1339,8 @@ _KERNEL_NAMES = ("pair_counts_kernel", "pack_words", "sort_rows_net",
 def kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel symbol of csrc/: the kernel
     and, for the row sorter's network, its word type, registers a lane
-    and warps a row; for the window hashes, the feed."""
+    and warps a row; for the window hashes, the feed; for dup_stats, the
+    counters' branch."""
     import re
     m = re.search(r"sort_rows_netI([jm])Li(\d+)ELi(\d+)E", mangled)
     if m:
@@ -1189,9 +1349,9 @@ def kernel_name(mangled: str) -> str:
     m = re.search(r"window_hashes_kernelILb([01])E", mangled)
     if m:
         return f"window_hashes_kernel<{('bytes', 'wire')[int(m.group(1))]}>"
-    m = re.search(r"dup_scan_kernelI([jl])E", mangled)
+    m = re.search(r"dup_stats_kernelILb([01])E", mangled)
     if m:
-        return f"dup_scan_kernel<{'uint32' if m.group(1) == 'j' else 'int64'}>"
+        return f"dup_stats_kernel<{('global', 'shared')[int(m.group(1))]}>"
     return next((n for n in _KERNEL_NAMES if n in mangled), mangled[:60])
 
 
@@ -1217,8 +1377,10 @@ def sass_summary(lib_path: str) -> list:
     against the shared-memory loads and stores (LDS, STS) of the row
     sorter's network; and for the window hashes the shared-memory loads
     (no power table), the global stores and how many of them are 16-byte
-    (STG.128), and the multiply-adds (IMAD, moves excluded); from
-    cuobjdump, where the toolkit has it."""
+    (STG.128), and the multiply-adds (IMAD, moves excluded); for dup_stats
+    and dup_scan the global loads and stores, the shared-memory loads,
+    stores and atomics (ATOMS); from cuobjdump, where the toolkit has
+    it."""
     import re
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
@@ -1232,8 +1394,8 @@ def sass_summary(lib_path: str) -> list:
             keys = ("LDS", "STS", "STG", "STG.128", "IMAD", "BAR")
         elif name.startswith(("pair_counts", "sort_rows_net")):
             keys = ("HGMMA", "IGMMA", "SHFL", "LDS", "STS", "BAR")
-        elif name.startswith("dup_scan"):
-            keys = ("LDG", "STG", "IMAD", "BAR")
+        elif name.startswith("dup_"):
+            keys = ("LDG", "STG", "STG.128", "LDS", "STS", "ATOMS", "BAR")
         else:
             continue
         ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
@@ -1293,8 +1455,9 @@ def main() -> int:
     kres = kernel_phase(os.path.join(
         hiv_data, "assembly_graph_after_simplification.gfa"))
     ragged_shapes()
-    say(f"dup_scan ragged shapes: {dup_scan_ragged(np.random.RandomState(6))}"
-        " kernel checks bit-equal to plain")
+    say(f"dup_stats / dup_scan ragged shapes: "
+        f"{dup_ragged(np.random.RandomState(6))} kernel checks bit-equal "
+        "to plain")
 
     # 4. synth slice
     syn = expected["synth"]
@@ -1319,7 +1482,7 @@ def main() -> int:
     launches, wall = count_launches(
         "hiv dense", lambda: run_cli(hiv, hiv_data, hiv_out),
         ("window_hashes", "stats_accum", "pair_counts"),
-        ("sort_rows", "dup_scan"))
+        ("sort_rows", "dup_scan", "dup_stats"))
     say(f"hiv: port CLI {wall:.2f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     check_digests("HIV output", hiv_out, hiv["outputs"])
@@ -1361,18 +1524,22 @@ def main() -> int:
     c50 = cell_50k(expected["r50k"], np.random.RandomState(3))
 
     # 8. the repeat cell, dense and sparse; 9. the N = 300,000 cell
-    rep_launches, kres["dup_scan"] = repeat_cell(expected["repeat"])
+    (rep_dense, rep_sparse, kres["dup_stats"], kres["dup_scan"],
+     rep_plane) = repeat_cell(expected["repeat"])
     c300 = cell_300k(expected["r300k"], np.random.RandomState(4))
     launches["sort_rows"] = sparse_launches["sort_rows"]
-    launches["dup_scan"] = rep_launches["dup_scan"]
+    launches["dup_stats"] = rep_dense["dup_stats"]
+    launches["dup_scan"] = rep_sparse["dup_scan"]
     # each kernel's line: its main-path shape (the HIV dense run's; for
-    # sort_rows the N = 50k tail's (key, val) sort; for dup_scan the
-    # repeat cell's dense run), its other shapes under "also"
+    # sort_rows the N = 50k tail's (key, val) sort; for dup_stats and
+    # dup_scan the repeat cell's dense and sparse runs), its other shapes
+    # under "also"
     kres["sort_rows"] = next(c for c in c50 if c["kernel"] == "sort_rows")
     others = kres["also"] + sparse_checks + [
-        c for c in c50 if c is not kres["sort_rows"]] + hiv_dup + c300
+        c for c in c50 if c is not kres["sort_rows"]] + hiv_dup + c300 + [
+        rep_plane]
     keys = ("shape", "ms", "plain_ms", "library_ms", "library", "bound_ms",
-            "bound_by")
+            "bound_by", "entries_walked", "distinct_entries", "table_bytes")
     kernels = []
     for meta in ck.KERNELS:
         m = kres[meta["name"]]
@@ -1380,10 +1547,13 @@ def main() -> int:
             meta, launches=launches[meta["name"]],
             **{k: m.get(k) for k in ("shape", "max_abs_err", "ms",
                                      "plain_ms", "bound_ms", "bound_by",
-                                     "bound_rate", "library_ms", "library")},
+                                     "bound_rate", "library_ms", "library",
+                                     "entries_walked", "distinct_entries",
+                                     "table_bytes")},
             also=[{k: c.get(k) for k in keys} for c in others
                   if c["kernel"] == meta["name"]]))
     shutil.rmtree(WORK, ignore_errors=True)
+    say(smi)  # again here, so that the card stays in a cut log's tail
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

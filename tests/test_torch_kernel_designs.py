@@ -1,4 +1,4 @@
-"""The logic of the port's three redesigned CUDA kernels, which cannot
+"""The logic of the port's five redesigned CUDA kernels, which cannot
 run on the CPU, emulated in numpy step for step and held to the plain
 versions and the JAX package's Pallas kernels (interpret mode):
 
@@ -22,6 +22,15 @@ versions and the JAX package's Pallas kernels (interpret mode):
     of windows, its first by Horner's rule and the rest by rolling, with
     a rolling count of bad codes; each warp's outputs staged as one flat
     range and stored in 16-byte groups with a head and tail a lane each.
+  * dup_stats and dup_scan (csrc/dup_stats.cu, csrc/dup_scan.cu,
+    csrc/dup_walk.cuh): each window's walk of its duplicate run (16-byte
+    records in groups of 2, then 4; stop after the first entry past the
+    run, never past the depth or the table's end), the block-to-row
+    (dup_stats) and
+    block-to-window (dup_scan) plans, the shared counters of dup_stats and
+    its global branch, and the staged planes of dup_scan, each stored as a
+    flat range congruent with its output: a scalar head, 16-byte vectors,
+    a scalar tail.
 
 Every output is an integer, so every comparison is exact (tolerance 0).
 """
@@ -35,6 +44,8 @@ import torch
 
 import jax.numpy as jnp
 
+import chip_smoke
+from tests.test_torch_pe_classic import _scan_case
 from vstrains_tpu.ops import pe_infer as JP
 from vstrains_tpu.ops.pallas_kernels import pair_matmuls_pallas
 from vstrains_tpu.ops.pallas_kernels import window_hashes_pallas
@@ -341,10 +352,11 @@ _HASH_CU = os.path.join(os.path.dirname(ck.__file__), os.pardir, "csrc",
                         "window_hashes.cu")
 
 
-def _cu_const(name):
-    """An integer constant of csrc/window_hashes.cu (`constexpr ... name =
-    value;`), so that the emulated plan follows the kernel's source."""
-    with open(_HASH_CU) as fh:
+def _cu_const(name, path=_HASH_CU):
+    """An integer constant of a kernel source, csrc/window_hashes.cu by
+    default (`constexpr ... name = value;`), so that the emulated plan
+    follows the kernel's source."""
+    with open(path) as fh:
         m = re.search(rf"constexpr \w+ {name} = ([0-9 *]+);", fh.read())
     return eval(m.group(1))
 
@@ -719,3 +731,320 @@ def test_hash_layout_lanes_runs_and_banks(T, L):
     assert p["smem"] <= _cu_const("kSmem") <= _cu_const("kMaxSmem")
     if rows == 1:
         assert _bank_load(lanes, run, chunk) == 1
+
+
+# --------------------------------------------------------------------------
+# dup_stats and dup_scan
+# --------------------------------------------------------------------------
+
+_CSRC = os.path.join(os.path.dirname(ck.__file__), os.pardir, "csrc")
+_WALK_CUH = os.path.join(_CSRC, "dup_walk.cuh")
+_STATS_CU = os.path.join(_CSRC, "dup_stats.cu")
+_SCAN_CU = os.path.join(_CSRC, "dup_scan.cu")
+
+
+def _walk(rec, loc, n, q, h):
+    """One thread's walk (dup_walk.cuh::walk) over n records (h1, h2,
+    node, 0) from loc: returns (hits [(rank, node)], entries examined up to
+    and including the first h1 above q, records loaded)."""
+    group = _cu_const("kWalkGroup", _WALK_CUH)
+    hits, examined, loaded, stopped = [], 0, 0, False
+    d, g = 0, 2
+    while d < n:
+        us = [u for u in range(g) if d + u < n]
+        e = [rec[loc + d + u] for u in us]
+        loaded += len(us)
+        for x in e:
+            if not stopped:
+                examined += 1
+                stopped = int(x[0]) > q
+        for u, x in zip(us, e):
+            if int(x[0]) == q and int(x[1]) == h:
+                hits.append((d + u, int(x[2])))
+        if any(int(x[0]) > q for x in e):
+            break
+        d, g = d + g, group
+    # a group's loads past the stopping entry are the only excess
+    assert examined <= loaded < examined + group
+    return hits, examined, loaded
+
+
+def _window_walk(win, rec, w, depth):
+    """The walk of flat window w as a thread runs it: nothing for an
+    invalid window, else from loc = min(lo, M - 1) over min(D, M - loc)
+    entries."""
+    q1, h2, valid, lo = (x.reshape(-1) for x in win)
+    if not valid[w]:
+        return [], 0, 0
+    M = rec.shape[0]
+    loc = min(int(lo[w]), M - 1)
+    return _walk(rec, loc, min(depth, M - loc), int(q1[w]), int(h2[w]))
+
+
+def _flat_store(g0, span, src, dst, s0):
+    """store_flat (dup_walk.cuh): words g0 .. g0 + span of an output whose
+    base is 16-byte aligned, from shared words s0 .. (congruent: s0 = g0
+    mod 4). The head, the 16-byte vectors and the tail cover the range
+    once, and every vector is aligned at both ends."""
+    assert (s0 - g0) % 4 == 0
+    head = min(span, (4 - g0) & 3)
+    quads = (span - head) >> 2
+    done = np.zeros(span, np.int64)
+    for i in range(head):
+        dst[g0 + i] = src[s0 + i]
+        done[i] += 1
+    for i in range(quads):
+        j = head + 4 * i
+        assert (g0 + j) % 4 == 0 and (s0 + j) % 4 == 0
+        dst[g0 + j:g0 + j + 4] = src[s0 + j:s0 + j + 4]
+        done[j:j + 4] += 1
+    for i in range(head + 4 * quads, span):
+        dst[g0 + i] = src[s0 + i]
+        done[i] += 1
+    assert (done == 1).all()
+
+
+def _staged_ranges(g_a, g_b, span, smem_bytes):
+    """Where a block stages two flat ranges in shared memory (word 0 is
+    16-byte aligned): the first congruent with output word g_a, the second
+    from the next 16-byte boundary, congruent with g_b. Both ranges'
+    16-byte fills (fill_shared) stay apart and inside the block's shared
+    memory."""
+    a = g_a & 3
+    end = -(-(a + span) // 4) * 4
+    b = end + ((g_b - end) & 3)
+    fill_a = (a // 4 * 4, -(-(a + span) // 4) * 4)
+    fill_b = (b // 4 * 4, -(-(b + span) // 4) * 4)
+    assert fill_a[1] <= fill_b[0] and fill_b[1] * 4 <= smem_bytes
+    return a, b
+
+
+def _stats_plan(R, K, N):
+    """plan() of csrc/dup_stats.cu: (rows a block, threads, shared bytes;
+    0 for the global branch)."""
+    windows = _cu_const("kWindows", _STATS_CU)
+    smem_max = _cu_const("kSmemMax", _STATS_CU)
+
+    def smem(rows):
+        return 4 * (2 * rows * N + 16)
+    rows = min(R, 1 if K >= windows else windows // max(K, 1))
+    while rows > 1 and smem(rows) > smem_max:
+        rows -= 1
+    threads = min(_cu_const("kMaxThreads", _STATS_CU),
+                  max(32, -(-rows * K // 32) * 32))
+    return rows, threads, smem(rows) if smem(rows) <= smem_max else 0
+
+
+def _emulate_dup_stats(win, rec, depth, N, base=(0, 4)):
+    """dup_stats, block by block: returns (cnt, kmin) int32 [R, N] and the
+    entries each window examined, int64 [R, K]. `base` is the word address
+    of each output (16-byte aligned)."""
+    R, K = win[0].shape
+    rows, threads, smem = _stats_plan(R, K, N)
+    cnt = np.full(base[0] + R * N, -7, np.int64)
+    kmin = np.full(base[1] + R * N, -7, np.int64)
+    examined = np.zeros(R * K, np.int64)
+    for b in range(-(-R // rows)):
+        r0 = b * rows
+        nrows = min(rows, R - r0)
+        span = nrows * N
+        c = np.zeros(span, np.int64)
+        km = np.full(span, _I32_MAX, np.int64)
+        # the thread loop gives each of the block's windows one thread
+        owned = np.concatenate([np.arange(t, nrows * K, threads)
+                                for t in range(threads)])
+        assert np.array_equal(np.sort(owned), np.arange(nrows * K))
+        for wl in range(nrows * K):
+            hits, examined[r0 * K + wl], _ = _window_walk(
+                win, rec, r0 * K + wl, depth)
+            rl, k = divmod(wl, K)
+            for _, node in hits:
+                if 0 <= node < N:
+                    c[rl * N + node] += 1
+                    km[rl * N + node] = min(km[rl * N + node], k)
+        g0 = r0 * N
+        if smem:
+            s = np.zeros(smem // 4, np.int64)
+            a, bk = _staged_ranges(base[0] + g0, base[1] + g0, span, smem)
+            s[a:a + span], s[bk:bk + span] = c, km
+            _flat_store(base[0] + g0, span, s, cnt, a)
+            _flat_store(base[1] + g0, span, s, kmin, bk)
+        else:
+            cnt[base[0] + g0:base[0] + g0 + span] = c
+            kmin[base[1] + g0:base[1] + g0 + span] = km
+    return (cnt[base[0]:].reshape(R, N), kmin[base[1]:].reshape(R, N),
+            examined.reshape(R, K))
+
+
+def _scan_block_windows(D):
+    """block_windows() of csrc/dup_scan.cu."""
+    w = _cu_const("kThreads", _SCAN_CU)
+    while w > 0 and 4 * (2 * w * D + 16) > _cu_const("kSmemMax", _SCAN_CU):
+        w //= 2
+    return w
+
+
+def _emulate_dup_scan(win, rec, depth, base=(0, 4)):
+    """dup_scan, block by block: returns (node_key, kidx_v) int32
+    [R, K * D] and the entries each window examined, int64 [R, K]."""
+    R, K = win[0].shape
+    W = R * K
+    bw = _scan_block_windows(depth)
+    assert bw >= 1
+    smem = 4 * (2 * bw * depth + 16)
+    node_key = np.full(base[0] + W * depth, -7, np.int64)
+    kidx_v = np.full(base[1] + W * depth, -7, np.int64)
+    examined = np.zeros(W, np.int64)
+    for b in range(-(-W // bw)):
+        w0 = b * bw
+        nw = min(bw, W - w0)
+        span = nw * depth
+        g0 = w0 * depth
+        s = np.zeros(smem // 4, np.int64)
+        a, bk = _staged_ranges(base[0] + g0, base[1] + g0, span, smem)
+        s[a:a + span] = _I32_MAX
+        s[bk:bk + span] = _I32_MAX
+        for t in range(nw):
+            hits, examined[w0 + t], _ = _window_walk(win, rec, w0 + t, depth)
+            for d, node in hits:
+                s[a + t * depth + d] = node
+                s[bk + t * depth + d] = (w0 + t) % K
+        _flat_store(base[0] + g0, span, s, node_key, a)
+        _flat_store(base[1] + g0, span, s, kidx_v, bk)
+    return (node_key[base[0]:].reshape(R, K * depth),
+            kidx_v[base[1]:].reshape(R, K * depth), examined.reshape(R, K))
+
+
+def _table_union(lo, examined, M):
+    """The entries the emulated walks examined, each once: the union of
+    [loc, loc + examined) over the windows."""
+    loc = np.minimum(lo.numpy().reshape(-1).astype(np.int64), M - 1)
+    seen = set()
+    for a, n in zip(loc, examined.reshape(-1)):
+        seen.update(range(a, a + n))
+    return seen
+
+
+def _check_table_bytes(lo, examined, M):
+    """chip_smoke.dup_table_bytes (the table part of the classic bound)
+    against the emulated walks' entries, counted once: 12 bytes an entry
+    with the table in L2, else ceil(12 L / 32) sectors for each run of L
+    adjacent entries (forced here with an L2 of 0 bytes)."""
+    seen = _table_union(lo, examined, M)
+    n = torch.from_numpy(examined)
+    assert chip_smoke.dup_table_bytes(lo, n, M) == (
+        len(seen), 12 * len(seen), "bytes (in L2)")
+    sectors = sum(-(-12 * L // 32) for L in _runs(sorted(seen)))
+    assert chip_smoke.dup_table_bytes(lo, n, M, l2_bytes=0) == (
+        len(seen), 32 * sectors, "32-byte sectors (past L2)")
+
+
+def _runs(entries):
+    """The lengths of the runs of adjacent values in a sorted list."""
+    runs = []
+    for i, e in enumerate(entries):
+        if i and e == entries[i - 1] + 1:
+            runs[-1] += 1
+        else:
+            runs.append(1)
+    return runs
+
+
+def _check_dup_emulations(win, tab, depth, N):
+    """Both emulations against the plain versions, with the table as the
+    record the kernels read, and their examined entries against
+    chip_smoke.dup_walk_entries and dup_table_bytes (what the smoke's bound
+    counts)."""
+    rec = ck.table_record(*tab)
+    want_entries = chip_smoke.dup_walk_entries(win[0], win[2], win[3],
+                                               tab[0], depth).numpy()
+    cnt, kmin, ex_stats = _emulate_dup_stats(win, rec.numpy(), depth, N)
+    node_key, kidx_v, ex_scan = _emulate_dup_scan(win, rec.numpy(), depth)
+    wc, wk = ck.dup_stats_plain(*win, rec, depth, N)
+    np.testing.assert_array_equal(cnt, wc.numpy())
+    np.testing.assert_array_equal(kmin, wk.numpy())
+    wn, wv = ck.dup_scan_plain(*win, rec, depth)
+    np.testing.assert_array_equal(node_key, wn.numpy())
+    np.testing.assert_array_equal(kidx_v, wv.numpy())
+    np.testing.assert_array_equal(ex_stats, want_entries)
+    np.testing.assert_array_equal(ex_scan, want_entries)
+    _check_table_bytes(win[3], ex_stats, rec.shape[0])
+    return cnt, kmin, node_key, kidx_v
+
+
+@pytest.mark.parametrize("depth", [1, 2, 17, 40])
+def test_dup_emulations_match_plain_and_jax(depth):
+    """Both kernels' emulations on the reads' windows over a padded table
+    (with the padding, M - 3 and all-invalid rows): equal to the plain
+    versions and to the JAX package's _dup_scan_stats_impl and
+    _sparse_expand_matches; each window examines exactly the entries the
+    bound counts."""
+    table, win, tab, j = _scan_case()
+    N = table.num_nodes
+    cnt, kmin, node_key, kidx_v = _check_dup_emulations(win, tab, depth, N)
+    wc, wk = JP._dup_scan_stats_impl(*j, depth, N)
+    np.testing.assert_array_equal(cnt, np.asarray(wc))
+    np.testing.assert_array_equal(kmin, np.asarray(wk))
+    wn, wv = JP._sparse_expand_matches(*j, depth)
+    np.testing.assert_array_equal(node_key, np.asarray(wn))
+    np.testing.assert_array_equal(kidx_v, np.asarray(wv))
+    assert cnt.sum() > 0
+
+
+@pytest.mark.parametrize("R,K,D,m_real,M,N", [
+    (min(R, 41), K, D, m_real, M, N)
+    for R, K, D, m_real, M, N in chip_smoke.CLASSIC_RAGGED])
+def test_dup_emulations_ragged(R, K, D, m_real, M, N):
+    """The emulations at the smoke's ragged shapes (rows cut to 41 here)
+    against the plain versions, with output bases at every 16-byte phase
+    the staging meets (the rows' flat offsets)."""
+    win, tab = chip_smoke.classic_ragged_case(np.random.RandomState(R * K + D),
+                                              R, K, m_real, M, N)
+    win = tuple(torch.from_numpy(a) for a in win)
+    tab = tuple(torch.from_numpy(a) for a in tab)
+    _check_dup_emulations(win, tab, D, N)
+    shared = _stats_plan(R, K, N)[2] > 0
+    assert shared == (N != 30000)
+
+
+@pytest.mark.parametrize("R,K,N", [(32768, 95, 1024), (32768, 201, 773),
+                                   (16384, 95, 6000), (64, 95, 30000),
+                                   (32768, 18, 773), (2, 5000, 50)])
+def test_dup_stats_plan(R, K, N):
+    """The plan at the paths' shapes (repeat: 2 rows, 192 threads; HIV: 1
+    row, 224 threads) and beyond: about kWindows windows a block, whole
+    warps, shared counters within a block's 227 KB, else global atomics."""
+    rows, threads, smem = _stats_plan(R, K, N)
+    assert threads % 32 == 0 and 32 <= threads <= 1024
+    assert threads >= min(rows * K, 1024)
+    assert rows == 1 or rows * K <= _cu_const("kWindows", _STATS_CU)
+    assert smem <= 227 * 1024
+    assert (smem > 0) == (8 * N + 64 <= 227 * 1024)
+    if (K, N) == (95, 1024):
+        assert (rows, threads) == (2, 192)
+    if (K, N) == (201, 773):
+        assert (rows, threads) == (1, 224)
+
+
+@pytest.mark.parametrize("D", [1, 4, 32, 64, 226, 227, 3000, 29000])
+def test_dup_scan_block_windows(D):
+    """Windows a dup_scan block stages: 128 (one a thread) while both
+    planes fit a block's 227 KB, then halved; none past what one window
+    can stage (the entry refuses it)."""
+    w = _scan_block_windows(D)
+    assert w == 0 or 4 * (2 * w * D + 16) <= 227 * 1024
+    assert (w == 128) == (D <= 226)
+    assert (w == 0) == (D > 29054)
+
+
+def test_dup_table_bytes_counts_each_entry_once():
+    """Windows that walk the same entries count them once: windows over
+    entries 5-7, 6-9 and 6-9 again, one invalid (n = 0) window at 0, one
+    clamped at M - 1 (entry 10) and one over entry 2 alone. Past L2, the
+    run 5-10 (72 bytes) needs 3 sectors at best and entry 2 one."""
+    M = 11
+    lo = torch.tensor([[5, 6, 6, 0, 40, 2]], dtype=torch.int32)
+    n = torch.tensor([[3, 4, 4, 0, 1, 1]], dtype=torch.int64)
+    assert chip_smoke.dup_table_bytes(lo, n, M) == (7, 84, "bytes (in L2)")
+    assert chip_smoke.dup_table_bytes(lo, n, M, l2_bytes=0) == (
+        7, 128, "32-byte sectors (past L2)")

@@ -156,10 +156,13 @@ def test_cpu_wrappers_do_not_count_launches():
     ck.sort_rows(key)
     tab = torch.arange(16, dtype=torch.int32)
     win = torch.zeros((4, 5), dtype=torch.int32)
-    ck.dup_scan(win, win, torch.ones((4, 5), dtype=torch.bool), win, tab,
-                tab, tab, 3, 9)
+    ones = torch.ones((4, 5), dtype=torch.bool)
+    rec = ck.table_record(tab, tab, tab)
+    ck.dup_scan(win, win, ones, win, rec, 3)
+    ck.dup_stats(win, win, ones, win, rec, 3, 9)
     assert ck.LAUNCHES == {"window_hashes": 0, "stats_accum": 0,
-                           "pair_counts": 0, "sort_rows": 0, "dup_scan": 0}
+                           "pair_counts": 0, "sort_rows": 0, "dup_scan": 0,
+                           "dup_stats": 0}
     assert [k["name"] for k in ck.KERNELS] == list(ck.LAUNCHES)
 
 
@@ -184,6 +187,9 @@ def test_non_cpu_tensors_never_fall_back():
     with pytest.raises(ValueError):
         ck.sort_rows(key, torch.zeros((4, 8), dtype=torch.int32))
     tab = torch.zeros(16, dtype=torch.int32)
+    meta_valid = torch.zeros((4, 8), dtype=torch.bool)
+    rec = ck.table_record(tab, tab, tab)
     with pytest.raises(ValueError):
-        ck.dup_scan(key, key, torch.zeros((4, 8), dtype=torch.bool), key,
-                    tab, tab, tab, 2, 9)
+        ck.dup_scan(key, key, meta_valid, key, rec, 2)
+    with pytest.raises(ValueError):
+        ck.dup_stats(key, key, meta_valid, key, rec, 2, 9)

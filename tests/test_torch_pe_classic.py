@@ -295,10 +295,11 @@ def test_lo_planes_match_jax(probe):
         assert got_e.numpy()[0, 1] == table.num_entries
     if probe == "searchsorted":
         N = table.num_nodes
-        slots = ck.dup_scan_plain(
-            q1, h2, valid, got, tab_h1, torch.from_numpy(table.h2),
-            torch.from_numpy(table.node), table.max_dup, N)
-        cnt, kmin = ck.stats_accum_plain(slots, table.max_dup, N)
+        cnt, kmin = ck.dup_stats_plain(
+            q1, h2, valid, got,
+            ck.table_record(tab_h1, torch.from_numpy(table.h2),
+                            torch.from_numpy(table.node)),
+            table.max_dup, N)
         wc, wk = JP._probe_stats(jc, jl, jt, jnp.asarray(table.h2),
                                  jnp.asarray(table.node), L, table.max_dup,
                                  N)
@@ -307,20 +308,17 @@ def test_lo_planes_match_jax(probe):
         assert cnt.numpy().sum() > 0
 
 
-@pytest.mark.parametrize("depth", [1, 16, 17, 40])
-def test_dup_scan_plain_matches_jax(depth):
-    """dup_scan_plain against _gather_node_slots (the dense stats' input)
-    and _sparse_expand_matches (the sparse tail's), and its stats against
-    _dup_scan_stats_impl, at depths below, at and past the packed probe's
-    16 ranks. Besides the reads' windows: a row of queries equal to the
-    padding (h1 = INT32_MAX, h2 = -1: they match the padding entries, node
-    0, up to the table's end), one whose scan starts 3 entries before the
-    end, and an all-invalid row."""
+def _scan_case():
+    """The windows of reads over a padded table with duplicate runs, their
+    join bounds, and three more rows: queries equal to the padding (h1 =
+    INT32_MAX, h2 = -1: they match the padding entries, node 0, up to the
+    table's end), one whose scan starts 3 entries before the end, and an
+    all-invalid row. Returns the table, (q1, h2, valid, lo), the table
+    arrays and the same as JAX arrays."""
     table, _, _, _, q1, h2, valid = _table_and_windows(7, 9)
     M = table.h1_biased.size
-    N = table.num_nodes
-    tab = [torch.from_numpy(a) for a in (table.h1_biased, table.h2,
-                                         table.node)]
+    tab = tuple(torch.from_numpy(a) for a in (table.h1_biased, table.h2,
+                                              table.node))
     lo = TP._join_lo(q1, tab[0])
     K = q1.shape[1]
     pad_q = torch.full((3, K), _I32_MAX, dtype=torch.int32)
@@ -329,29 +327,54 @@ def test_dup_scan_plain_matches_jax(depth):
     pad_valid[2] = False
     pad_lo = torch.full((3, K), table.num_entries, dtype=torch.int32)
     pad_lo[1] = M - 3
-    q1, h2, valid, lo = (torch.cat([a, b]) for a, b in
-                         ((q1, pad_q), (h2, pad_h2), (valid, pad_valid),
-                          (lo, pad_lo)))
-    got = ck.dup_scan_plain(q1, h2, valid, lo, *tab, depth, N)
-    assert got.dtype == torch.int32 and got.shape == (q1.shape[0],
-                                                      K * depth)
-    j = [jnp.asarray(x.numpy()) for x in (q1, h2, valid, lo)]
-    jt = [jnp.asarray(x.numpy()) for x in tab]
-    want = np.asarray(JP._gather_node_slots(*j, *jt, depth, N))
-    np.testing.assert_array_equal(got.numpy(), want)
-    node_key, kidx_v = (np.asarray(x) for x in
-                        JP._sparse_expand_matches(*j, *jt, depth))
-    g = got.numpy()
-    np.testing.assert_array_equal(np.where(g < N, g, _I32_MAX), node_key)
-    kidx = np.arange(K * depth) // depth
-    np.testing.assert_array_equal(
-        np.where(g < N, kidx[None, :], _I32_MAX), kidx_v)
-    cnt, kmin = ck.stats_accum_plain(got, depth, N)
-    wc, wk = JP._dup_scan_stats_impl(*j, *jt, depth, N)
-    np.testing.assert_array_equal(cnt.numpy(), np.asarray(wc))
-    np.testing.assert_array_equal(kmin.numpy(), np.asarray(wk))
+    win = tuple(torch.cat([a, b]) for a, b in
+                ((q1, pad_q), (h2, pad_h2), (valid, pad_valid),
+                 (lo, pad_lo)))
+    j = [jnp.asarray(x.numpy()) for x in win + tab]
+    return table, win, tab, j
+
+
+@pytest.mark.parametrize("depth", [1, 16, 17, 40])
+def test_dup_stats_plain_matches_jax(depth):
+    """dup_stats_plain (the dense engine's classic probe) against
+    _dup_scan_stats_impl, with the table as the interleaved record, at
+    depths below, at and past the packed probe's 16 ranks, on the reads'
+    windows and the padding, M - 3 and invalid rows."""
+    table, win, tab, j = _scan_case()
+    M, N = table.h1_biased.size, table.num_nodes
+    K = win[0].shape[1]
+    wc, wk = (np.asarray(x) for x in JP._dup_scan_stats_impl(*j, depth, N))
+    cnt, kmin = ck.dup_stats_plain(*win, ck.table_record(*tab), depth, N)
+    assert cnt.dtype == kmin.dtype == torch.int32
+    np.testing.assert_array_equal(cnt.numpy(), wc)
+    np.testing.assert_array_equal(kmin.numpy(), wk)
+    c = cnt.numpy()
     # padding hits (node 0) end at the table's end; the invalid row misses
+    assert c[-3, 0] == K * min(depth, M - table.num_entries)
+    assert c[-2, 0] == K * min(depth, 3)
+    assert (c[-1] == 0).all() and (kmin.numpy()[-1] == _I32_MAX).all()
+    assert c[:-3].sum() > 0
+
+
+@pytest.mark.parametrize("depth", [1, 16, 17, 40])
+def test_dup_scan_plain_matches_jax(depth):
+    """dup_scan_plain (the sparse engine's classic probe) against
+    _sparse_expand_matches, the same depths and rows as above."""
+    table, win, tab, j = _scan_case()
+    M = table.h1_biased.size
+    K = win[0].shape[1]
+    want = [np.asarray(x) for x in JP._sparse_expand_matches(*j, depth)]
+    got = ck.dup_scan_plain(*win, ck.table_record(*tab), depth)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32 and g.shape == (win[0].shape[0],
+                                                      K * depth)
+        np.testing.assert_array_equal(g.numpy(), w)
+    g = got[0].numpy()
     assert (g[-3] == 0).sum() == K * min(depth, M - table.num_entries)
     assert (g[-2] == 0).sum() == K * min(depth, 3)
-    assert (g[-1] == N).all()
-    assert (g[:-3] < N).sum() > 0
+    assert (g[-1] == _I32_MAX).all()
+    assert (g[:-3] != _I32_MAX).sum() > 0
+    # the window index stands beside each match, the sentinel elsewhere
+    kidx = np.arange(K * depth) // depth
+    np.testing.assert_array_equal(
+        got[1].numpy(), np.where(g != _I32_MAX, kidx[None, :], _I32_MAX))

@@ -17,11 +17,20 @@ redesigns at the shapes its paths give them:
   * pair_counts at the HIV dense batch (B = 16,384, N = 773);
   * sort_rows, (key, val) and key-only, at the N = 50k sparse tail
     (32,768 x 285) and the HIV sparse tail (65,536 x 402);
-  * dup_scan, where both checkouts have it: at the repeat cell's first
-    batch (tools/repeat_workload, 2B = 32,768, K = 95, D = max_dup = 32,
-    a 1 M-entry table that sits in L2) and at the N = 300k cell's shape
-    (K = 95, D = 4) over a random sorted table of 2^27 entries (out of
-    L2) whose windows are drawn from it, 10% of them misses.
+  * the classic probe's walk, where both checkouts have dup_scan: the
+    dense engine's stats (a checkout with dup_stats runs it; one without
+    runs dup_scan's slot plane through stats_accum) at the repeat cell's
+    first batch (tools/repeat_workload, 2B = 32,768, K = 95, D = max_dup
+    = 32, N = 1,024, a 1 M-entry table that sits in L2) and at the HIV
+    classic modes' shape (2B = 32,768, K = 201, D = 2, N = 773; a
+    synthetic table of 100,000 entries padded to 2^17, runs of one or two
+    entries); and the sparse engine's (node, window) planes (dup_scan,
+    or the old dup_scan plus the torch passes that built the planes from
+    its slots) at the repeat cell's sparse batch (2B = 8,192) and at the
+    N = 300k cell's shape (K = 95, D = 4) over a random sorted table of
+    2^27 entries (out of L2) whose windows are drawn from it, 10% of them
+    misses. A checkout with dup_stats reads the table as the interleaved
+    [M, 4] record, the parent as three arrays.
 
 Inputs are made from fixed numpy seeds, so both checkouts see the same
 data. Each shape is timed with this checkout's `chip_smoke.cuda_ms` both
@@ -31,7 +40,7 @@ than its wrapper's host time is timed back to back) and "host-paced"
 base, this, this, base; the result (the card's name and power limit,
 every turn's times and each shape's mean per checkout) is printed as one
 JSON line and written to PATH when given, with the SASS instruction
-counts of each checkout's window_hashes and dup_scan kernels
+counts of each checkout's window_hashes and classic-probe kernels
 (`chip_smoke.sass_summary`).
 """
 
@@ -111,21 +120,91 @@ for R, C in ((32768, 285), (65536, 402)):
     time_both(f"sort_rows (key, val) {R}x{C}", lambda: ck.sort_rows(key, val))
     time_both(f"sort_rows key-only {R}x{C}", lambda: ck.sort_rows(key))
 del key, val
+# the classic probe's walk: the parent's dup_scan slot plane, read by
+# stats_accum (dense) or turned into the sparse tail's planes by torch
+# passes, against this checkout's dup_stats / dup_scan; both checkouts see
+# the same windows (hashed by their own window_hashes, lo from one binary
+# search) and the same table
+fused = hasattr(ck, "dup_stats")
+
+def table_of(h1, h2, node):
+    return ((h1, h2, node),
+            torch.stack([h1, h2, node, torch.zeros_like(h1)], dim=1))
+
+def classic_stats(win, arrays, rec, D, N):
+    if fused:
+        return lambda: ck.dup_stats(*win, rec, D, N)
+    return lambda: ck.stats_accum(ck.dup_scan(*win, *arrays, D, N), D, N)
+
+def classic_planes(win, table, D, N):
+    if fused:
+        return lambda: ck.dup_scan(*win, table, D)
+    def run():
+        node_t = ck.dup_scan(*win, *table, D, N)
+        B2, C = node_t.shape
+        matched = node_t < N
+        kidx = (torch.arange(C, dtype=torch.int32, device=dev)
+                // D).expand(B2, C)
+        return (torch.where(matched, node_t, 2**31 - 1),
+                torch.where(matched, kidx, 2**31 - 1))
+    return run
+
+def windows(q1, h2, valid, h1):
+    lo = torch.searchsorted(h1, q1.reshape(-1)).to(torch.int32)
+    return (q1, h2, valid, lo.reshape(q1.shape))
+
 if hasattr(ck, "dup_scan"):
     from tools.repeat_workload import repeat_workload
-    refs, fwd, rve, k = repeat_workload(n_pairs=16384)
     from vstrains_tpu_torch.core.fastq import ReadPairBatch, _pack
+    refs, fwd, rve, k = repeat_workload(n_pairs=16384)
     fc, fl = _pack([x.encode() for x in fwd])
     rc, rl = _pack([x.encode() for x in rve])
     table = P.build_kmer_table(refs, k + 1)
-    args = smoke.classic_inputs(table, ReadPairBatch(fc, fl, rc, rl, 0, 0,
-                                                     len(fl)), 16384, k + 1)
-    R, K = args[0].shape
-    time_both(f"dup_scan repeat {R}x{K} D={table.max_dup}",
-              lambda: ck.dup_scan(*args, table.max_dup, table.num_nodes))
-    del args
+    D, N = table.max_dup, table.num_nodes
+    arrays, rec = table_of(*(torch.from_numpy(a).to(dev) for a in
+                             (table.h1_biased, table.h2, table.node)))
+    for pairs in (16384, 4096):
+        codes, lens = (torch.from_numpy(x).to(dev) for x in P._stack_ends_np(
+            fc[:pairs], fl[:pairs], rc[:pairs], rl[:pairs]))
+        win = windows(*ck.window_hashes_bytes(codes, lens, k + 1), arrays[0])
+        R, K = win[0].shape
+        if pairs == 16384:
+            time_both(f"classic stats, repeat {R}x{K} D={D} N={N}",
+                      classic_stats(win, arrays, rec, D, N))
+        else:
+            time_both(f"classic sparse planes, repeat {R}x{K} D={D}",
+                      classic_planes(win, rec if fused else arrays, D, N))
+    del win, arrays, rec
+    # the HIV classic modes' shape (2B = 32,768, K = 201, N = 773, runs of
+    # at most 2): a synthetic table of 100,000 entries padded to 2^17,
+    # windows drawn from it, 10% of them misses
+    gen = torch.Generator(device=dev).manual_seed(2)
+    M, m_real, N, D, R, K = 2**17, 100000, 773, 2, 32768, 201
+    h1 = torch.sort(torch.randint(-2**31, 2**31 - 1, (m_real,),
+                                  generator=gen, device=dev,
+                                  dtype=torch.int32)).values
+    dup = torch.rand(m_real, generator=gen, device=dev) < 0.3
+    dup[0] = False
+    h1 = torch.where(dup, torch.roll(h1, 1), h1)  # runs of one or two
+    h1 = torch.cat([h1, torch.full((M - m_real,), 2**31 - 1, device=dev,
+                                   dtype=torch.int32)])
+    h2 = torch.randint(-2**31, 2**31 - 1, (M,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    node = torch.randint(0, N, (M,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    arrays, rec = table_of(h1, h2, node)
+    pick = torch.randint(0, m_real, (R, K), generator=gen, device=dev)
+    miss = torch.rand((R, K), generator=gen, device=dev) < 0.1
+    q1 = torch.where(miss, h1[pick] ^ 0x5A5A, h1[pick])
+    valid = torch.rand((R, K), generator=gen, device=dev) < 0.97
+    win = windows(q1, h2[pick], valid, h1)
+    time_both(f"classic stats, HIV-shaped {R}x{K} D={D} N={N}",
+              classic_stats(win, arrays, rec, D, N))
+    del win, arrays, rec
+    # the N = 300k cell's shape (K = 95, D = 4) over a random sorted table
+    # of 2^27 entries (out of L2), windows drawn from it, 10% misses
     gen = torch.Generator(device=dev).manual_seed(27)
-    M, D, N = 2**27, 4, 300000
+    M, D, N, R, K = 2**27, 4, 300000, 32768, 95
     t1, t2, tn = (torch.randint(lo_, hi_, (M,), generator=gen, device=dev,
                                 dtype=torch.int32)
                   for lo_, hi_ in ((-2**31, 2**31 - 1), (-2**31, 2**31 - 1),
@@ -136,9 +215,10 @@ if hasattr(ck, "dup_scan"):
     miss = torch.rand((R, K), generator=gen, device=dev) < 0.1
     q1 = torch.where(miss, q1 ^ 0x5A5A, q1)
     valid = torch.rand((R, K), generator=gen, device=dev) < 0.97
-    lo = torch.searchsorted(t1, q1.reshape(-1)).to(torch.int32).reshape(R, K)
-    time_both(f"dup_scan large table {R}x{K} D={D} M=2^27",
-              lambda: ck.dup_scan(q1, h2, valid, lo, t1, t2, tn, D, N))
+    win = windows(q1, h2, valid, t1)
+    arrays, rec = table_of(t1, t2, tn)
+    time_both(f"classic sparse planes, large table {R}x{K} D={D} M=2^27",
+              classic_planes(win, rec if fused else arrays, D, N))
 print(json.dumps(out))
 """
 
@@ -174,7 +254,7 @@ def main(argv=None) -> int:
         lib = max(libs, key=os.path.getmtime)
         sass[name] = [line for line in sass_summary(lib)
                       if line.startswith(("sass window_hashes",
-                                          "sass dup_scan"))]
+                                          "sass dup_"))]
     res = {"card": smi, "turns": turns, "mean_ms": mean, "sass": sass}
     line = json.dumps(res)
     print(line)

@@ -1,132 +1,118 @@
-// The classic probe's duplicate-run scan: per-slot matched node ids.
+// The classic probe's duplicate-run scan on the sparse engine: per-slot
+// (node, window index) planes, the sparse tail's input.
 //
 // The port's own kernel for an XLA stage of the JAX package (no Pallas
-// kernel there): ops/pe_infer.py::_gather_node_slots, which feeds the
-// stats accumulator, and its sparse twin _sparse_expand_matches.
+// kernel there): vstrains_tpu/ops/pe_infer.py::_sparse_expand_matches.
 //
-// Inputs, per window w of R x K (row-major): the biased primary hash
-// q1[w], the secondary hash h2[w], valid[w], and lo[w], the window's first
-// table position with h1 >= q1 (a join, a binary search or the bucket
-// lookup; the lookup gives M for a window it does not find). The table
-// (h1 sorted, h2, node; int32 [M], M the padded length, sentinel entries
-// h1 = INT32_MAX, h2 = -1, node 0) is the JAX package's padded table.
-// Output: int32 [R, K * D], slot w * D + d holding tab_node[idx] when the
-// window matches at duplicate rank d, else the sentinel N, with the JAX
-// rule exactly:
-//   loc = min(lo, M - 1), idx = min(loc + d, M - 1),
-//   match = valid && tab_h1[idx] == q1 && tab_h2[idx] == h2
-//           && loc + d < M.
+// Inputs, per window w of R x K (row-major): q1, h2, valid and lo as in
+// dup_stats.cu; the padded table, sorted by h1, as interleaved records
+// int32 [M, 4] (dup_walk.cuh). Outputs, int32 [R, K * D] each,
+// slot w * D + d for window w = r * K + k at duplicate rank d:
+//   node_key = the matched entry's node, kidx_v = k, where the window
+//   matches at rank d by the JAX rule (dup_walk.cuh); INT32_MAX in both
+//   planes for a miss.
 //
-// What bounds it on the card: bytes. It reads each window's four inputs
-// (13 bytes) and writes 4 * D bytes a window; the table reads are gathers,
-// one 32-byte sector a window and rank group at most, from a table that
-// at the repeat cell's 1 M entries sits in L2 and at 300,000 nodes
-// (1.6 GB) does not. At 2B = 32,768, K = 95, D = 32 the output, 0.40 GB,
-// is nearly all of it. Design, simple first: one thread a slot, so a
-// warp's stores are 128 contiguous bytes; the D ranks of a window are
-// neighbouring threads reading neighbouring table entries, and the
-// window's inputs are the same address for all of them (broadcast). A
-// thread keeps kSlots slots of its grid stride in flight, and each slot's
-// loads come in three rounds: the window's four inputs, the entry's
-// primary hash, then the secondary hash and the node together for primary
-// matches only (most ranks of a scan lie past the window's run, so an
-// unconditional secondary hash doubles the table bytes). It runs well
-// below its bound (PERF.md §6); fusing it into stats_accum is the next
-// step. Plain torch would materialise an int64 index plane and three
-// gathered planes of [R * K, D] per batch.
+// What bounds it on the card: bytes. It reads 13 bytes a window and the
+// entries its walk needs, and writes 8 * D bytes a window: at the repeat
+// cell's sparse batch (2B = 8,192, K = 95, D = 32) 199 MB of output; on
+// the N = 300k cell's 2 GiB of records (D = 4) the walks' gathers miss
+// L2. Design: a block owns kThreads consecutive windows, one a thread,
+// and stages the windows' slots, which are one flat contiguous range of
+// each plane, in shared memory: the block fills both staged planes with
+// the sentinel, each thread walks its window once (dup_walk.cuh: it stops
+// at the first entry past the equal-h1 run, and the ranks past it are the
+// sentinel already, the table unread) and writes its matches, then the
+// block stores both ranges in 16-byte vectors, so a warp's stores are
+// whole contiguous lines at D = 4 as at D = 32. The staged planes sit
+// congruent with their outputs modulo 16 bytes. All per-slot arithmetic is
+// in 32-bit block-local indices over one 64-bit base a block.
 
-#include "vt_common.cuh"
+#include "dup_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kSlots = 4;                 // slots a thread keeps in flight
-constexpr int64_t kMaxBlocks = 132 * 64;  // a grid-stride loop beyond
+constexpr int kThreads = 128;
+constexpr int64_t kSmemMax = 227 * 1024;
 
-// Index is uint32_t while the slots fit it (the paths' shapes: 2B x K x D
-// stays under 2^31) and int64_t past that; the window of a slot is one
-// division by the depth either way.
-template <typename Index>
+// shared words for `windows` windows of D slots in two staged planes,
+// each placed congruent with its output and padded to whole quads
+int64_t smem_bytes(int64_t windows, int64_t D) {
+  return 4 * (2 * windows * D + 16);
+}
+
+// windows a block: kThreads, fewer where D slots a window would take more
+// than the shared memory a block may have; 0 where one window does not fit
+int64_t block_windows(int64_t D) {
+  int64_t w = kThreads;
+  while (w > 0 && smem_bytes(w, D) > kSmemMax) w /= 2;
+  return w;
+}
+
 __global__ void __launch_bounds__(kThreads)
-dup_scan_kernel(const int32_t* __restrict__ q1, const int32_t* __restrict__ h2,
+dup_scan_kernel(const int32_t* __restrict__ q1,
+                const int32_t* __restrict__ h2,
                 const uint8_t* __restrict__ valid,
                 const int32_t* __restrict__ lo,
-                const int32_t* __restrict__ tab_h1,
-                const int32_t* __restrict__ tab_h2,
-                const int32_t* __restrict__ tab_node, Index slots,
-                Index depth, int64_t M, int32_t N,
-                int32_t* __restrict__ out) {
-  const Index stride = static_cast<Index>(gridDim.x) * blockDim.x;
-  for (Index first = static_cast<Index>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       first < slots; first += stride * kSlots) {
-    int64_t pos[kSlots];
-    int32_t want1[kSlots], want2[kSlots];
-    bool live[kSlots];
-    // round 1: the windows' inputs (a slot past the end reads window 0)
-#pragma unroll
-    for (int u = 0; u < kSlots; ++u) {
-      const Index s = first + u * stride;
-      const Index w = s < slots ? s / depth : 0;
-      const int64_t l = __ldg(lo + w);
-      want1[u] = __ldg(q1 + w);
-      want2[u] = __ldg(h2 + w);
-      pos[u] = (l < M - 1 ? l : M - 1) + static_cast<int64_t>(s - w * depth);
-      live[u] = s < slots && __ldg(valid + w) && pos[u] < M;
-    }
-    // round 2: the entries' primary hashes
-#pragma unroll
-    for (int u = 0; u < kSlots; ++u)
-      if (live[u]) live[u] = __ldg(tab_h1 + pos[u]) == want1[u];
-    // round 3: secondary hash and node where the primary matched, then the
-    // stores
-#pragma unroll
-    for (int u = 0; u < kSlots; ++u) {
-      int32_t node = N;
-      if (live[u]) {
-        const int32_t e2 = __ldg(tab_h2 + pos[u]);
-        const int32_t e_node = __ldg(tab_node + pos[u]);
-        if (e2 == want2[u]) node = e_node;
-      }
-      const Index s = first + u * stride;
-      if (s < slots) out[s] = node;
+                const int4* __restrict__ tab, int64_t M,
+                int64_t windows, int K, int D, int block_w,
+                int32_t* __restrict__ node_key,
+                int32_t* __restrict__ kidx_v) {
+  extern __shared__ int4 s_raw[];
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * block_w;
+  const int nw = static_cast<int>(
+      windows - w0 < block_w ? windows - w0 : block_w);
+  const int span = nw * D;
+  int32_t* out_node = node_key + w0 * D;
+  int32_t* out_kidx = kidx_v + w0 * D;
+  int32_t* s_node =
+      vt::congruent(reinterpret_cast<int32_t*>(s_raw), out_node);
+  int32_t* s_kidx = vt::congruent(vt::align16(s_node + span), out_kidx);
+  vt::fill_shared(s_node, span, vt::kInf);
+  vt::fill_shared(s_kidx, span, vt::kInf);
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < nw) {
+    const int64_t w = w0 + t;
+    const int32_t q = __ldg(q1 + w);
+    const int32_t h = __ldg(h2 + w);
+    const int64_t l = __ldg(lo + w);
+    if (__ldg(valid + w)) {
+      const int64_t loc = l < M - 1 ? l : M - 1;
+      const int n = static_cast<int>(M - loc < D ? M - loc : D);
+      const int k = static_cast<int>(w % K);
+      int32_t* sn = s_node + t * D;
+      int32_t* sk = s_kidx + t * D;
+      vt::walk(tab, loc, n, q, h, [&](int d, int32_t node) {
+        sn[d] = node;
+        sk[d] = k;
+      });
     }
   }
+  __syncthreads();
+  vt::store_flat(out_node, s_node, span);
+  vt::store_flat(out_kidx, s_kidx, span);
 }
 
 }  // namespace
 
 VT_EXPORT int vt_dup_scan(const void* q1, const void* h2, const void* valid,
-                          const void* lo, const void* tab_h1,
-                          const void* tab_h2, const void* tab_node,
-                          int64_t windows, int64_t depth, int64_t M,
-                          int64_t N, void* out, void* stream) {
-  if (windows <= 0 || depth <= 0) return cudaSuccess;
-  if (M <= 0 || N < 0 || N > 0x7fffffff) return cudaErrorInvalidValue;
-  const int64_t slots = windows * depth;
-  int64_t blocks = (slots + kThreads * kSlots - 1) / (kThreads * kSlots);
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  auto s = static_cast<cudaStream_t>(stream);
-  const auto* a = static_cast<const int32_t*>(q1);
-  const auto* b = static_cast<const int32_t*>(h2);
-  const auto* v = static_cast<const uint8_t*>(valid);
-  const auto* l = static_cast<const int32_t*>(lo);
-  const auto* t1 = static_cast<const int32_t*>(tab_h1);
-  const auto* t2 = static_cast<const int32_t*>(tab_h2);
-  const auto* tn = static_cast<const int32_t*>(tab_node);
-  auto* o = static_cast<int32_t*>(out);
-  const auto n = static_cast<int32_t>(N);
-  // the uint32 loop's last step must not wrap: slots + kSlots strides
-  // stay under 2^32
-  if (slots + kSlots * kMaxBlocks * kThreads < (int64_t{1} << 32)) {
-    dup_scan_kernel<uint32_t><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                s>>>(a, b, v, l, t1, t2, tn,
-                                     static_cast<uint32_t>(slots),
-                                     static_cast<uint32_t>(depth), M, n, o);
-  } else {
-    dup_scan_kernel<int64_t><<<static_cast<unsigned>(blocks), kThreads, 0,
-                               s>>>(a, b, v, l, t1, t2, tn, slots, depth, M,
-                                    n, o);
-  }
+                          const void* lo, const void* tab, int64_t windows,
+                          int64_t K, int64_t D, int64_t M, void* node_key,
+                          void* kidx_v, void* stream) {
+  if (windows <= 0) return cudaSuccess;
+  const int64_t bw = block_windows(D);
+  if (K <= 0 || D <= 0 || M <= 0 || K > 0x7fffffff || bw < 1 ||
+      (windows + bw - 1) / bw > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  const size_t smem = static_cast<size_t>(smem_bytes(bw, D));
+  const cudaError_t err = vt::allow_smem(dup_scan_kernel, smem);
+  if (err != cudaSuccess) return err;
+  dup_scan_kernel<<<static_cast<unsigned>((windows + bw - 1) / bw), kThreads,
+                    smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(q1), static_cast<const int32_t*>(h2),
+      static_cast<const uint8_t*>(valid), static_cast<const int32_t*>(lo),
+      static_cast<const int4*>(tab), M, windows, static_cast<int>(K),
+      static_cast<int>(D), static_cast<int>(bw),
+      static_cast<int32_t*>(node_key), static_cast<int32_t*>(kidx_v));
   return cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""The PE engine's five hand-written CUDA kernels, each beside its plain
+"""The PE engine's six hand-written CUDA kernels, each beside its plain
 PyTorch version.
 
   * window_hashes_wire / window_hashes_bytes: csrc/window_hashes.cu,
@@ -11,10 +11,13 @@ PyTorch version.
     pallas_sort.py::sort_rows_pallas (the sparse engine's row sorts;
     key-only on the transpose, the column sorter prototype
     tools/colsort_proto.py::sort_cols_pallas);
-  * dup_scan: csrc/dup_scan.cu, the classic probe's duplicate-run scan,
-    the port's own kernel for an XLA stage of the JAX package
-    (pe_infer.py::_gather_node_slots / _sparse_expand_matches; no Pallas
-    kernel there).
+  * dup_stats and dup_scan: csrc/dup_stats.cu and csrc/dup_scan.cu, the
+    classic probe's duplicate-run walk (csrc/dup_walk.cuh), fused with the
+    per-(read, node) stats for the dense engine and expanded to the sparse
+    tail's (node, window) planes for the sparse engine: the port's own
+    kernels for XLA stages of the JAX package
+    (pe_infer.py::_dup_scan_stats_impl and _sparse_expand_matches; no
+    Pallas kernel there).
 
 A wrapper takes its plain version only when its tensors lie on the CPU
 (the CPU tests, `--device cpu`). On a CUDA tensor it launches the kernel,
@@ -39,7 +42,8 @@ _M32 = 0xFFFFFFFF
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"window_hashes": 0, "stats_accum": 0,
-                            "pair_counts": 0, "sort_rows": 0, "dup_scan": 0}
+                            "pair_counts": 0, "sort_rows": 0, "dup_scan": 0,
+                            "dup_stats": 0}
 
 # what chip_smoke.py reports for each kernel
 KERNELS = [
@@ -57,8 +61,13 @@ KERNELS = [
      "replaces": "vstrains_tpu/ops/pallas_sort.py:75"},
     {"name": "dup_scan", "route": "cuda",
      "source": "vstrains_tpu_torch/csrc/dup_scan.cu",
-     "replaces": "vstrains_tpu/ops/pe_infer.py:739",
-     "note": "port-only: the XLA stage _gather_node_slots, no TPU kernel"},
+     "replaces": "vstrains_tpu/ops/pe_infer.py:1094",
+     "note": "port-only: the XLA stage _sparse_expand_matches, no TPU "
+             "kernel"},
+    {"name": "dup_stats", "route": "cuda",
+     "source": "vstrains_tpu_torch/csrc/dup_stats.cu",
+     "replaces": "vstrains_tpu/ops/pe_infer.py:677",
+     "note": "port-only: the XLA stage _dup_scan_stats_impl, no TPU kernel"},
 ]
 
 
@@ -437,63 +446,124 @@ def sort_rows(key: torch.Tensor, val: Optional[torch.Tensor] = None):
 
 
 # --------------------------------------------------------------------------
-# classic probe duplicate-run scan (csrc/dup_scan.cu)
+# classic probe: the duplicate-run walk (csrc/dup_walk.cuh), fused with the
+# per-(read, node) stats (csrc/dup_stats.cu, dense engine) or expanded to
+# the sparse tail's planes (csrc/dup_scan.cu, sparse engine)
+#
+# Both take the windows (q1, h2 int32 [R, K], valid bool [R, K]), their
+# table positions lo (int32 [R, K], the first entry with h1 >= q1; M for a
+# window the bucket lookup did not find) and the padded table, sorted by
+# h1, as one interleaved int32 [M, 4] record (h1, h2, node, 0) an entry
+# (table_record). The JAX rule: loc = min(lo, M - 1); rank d < depth
+# matches when the window is valid, loc + d < M, and the entry at loc + d
+# has h1 == q1 and h2 == h2.
 # --------------------------------------------------------------------------
 
-def dup_scan_plain(q1: torch.Tensor, h2: torch.Tensor, valid: torch.Tensor,
-                   lo: torch.Tensor, tab_h1: torch.Tensor,
-                   tab_h2: torch.Tensor, tab_node: torch.Tensor, depth: int,
-                   num_nodes: int) -> torch.Tensor:
-    """Per-slot matched node ids, int32 [R, K * depth] (slot k * depth + d:
-    window k at duplicate rank d; num_nodes for a miss), by the JAX
-    package's duplicate-scan rule (_dup_scan_stats_impl,
-    _sparse_expand_matches): loc = min(lo, M - 1), idx = min(loc + d,
-    M - 1), a match needs valid, equal h1 and h2 at idx, and loc + d < M,
-    M being the padded table length. It equals _gather_node_slots (which
-    starts from lo itself) wherever lo < M, and where lo = M (a window the
-    bucket lookup did not find) unless the last entry's h1 equals q1."""
-    R, K = q1.shape
-    M = tab_h1.shape[0]
-    d = torch.arange(depth, dtype=torch.int64, device=q1.device)
-    pos = lo.to(torch.int64).clamp(max=M - 1)[:, :, None] + d
+def table_record(h1: torch.Tensor, h2: torch.Tensor,
+                 node: torch.Tensor) -> torch.Tensor:
+    """The table as one int32 [M, 4] record (h1, h2, node, 0) an entry,
+    which the kernels read in one 16-byte load."""
+    return torch.stack([h1, h2, node, torch.zeros_like(h1)], dim=1)
+
+
+def _rank_matches(q1, h2, valid, lo, table, d):
+    """(match bool, node) of every window at the ranks d (int64 [..., D]
+    broadcast against the windows' trailing axis), by the JAX rule."""
+    M = table.shape[0]
+    pos = lo.to(torch.int64).clamp(max=M - 1)[..., None] + d
     idx = pos.clamp(max=M - 1)
-    m = (valid[:, :, None] & (tab_h1[idx] == q1[:, :, None])
-         & (tab_h2[idx] == h2[:, :, None]) & (pos < M))
-    return torch.where(m, tab_node[idx], num_nodes).to(
-        torch.int32).reshape(R, K * depth)
+    m = (valid[..., None] & (table[idx, 0] == q1[..., None])
+         & (table[idx, 1] == h2[..., None]) & (pos < M))
+    return m, table[idx, 2]
 
 
-def dup_scan(q1: torch.Tensor, h2: torch.Tensor, valid: torch.Tensor,
-             lo: torch.Tensor, tab_h1: torch.Tensor, tab_h2: torch.Tensor,
-             tab_node: torch.Tensor, depth: int,
-             num_nodes: int) -> torch.Tensor:
-    """Per-slot matched node ids int32 [R, K * depth] of windows (q1, h2
-    int32 [R, K], valid bool [R, K]) scanned from their table positions lo
-    (int32 [R, K]) over the padded table (int32 [M] each): the contract of
-    dup_scan_plain."""
-    tensors = (q1, h2, valid, lo, tab_h1, tab_h2, tab_node)
-    if not _on_cuda(*tensors):
-        return dup_scan_plain(*tensors, depth, num_nodes)
+def dup_stats_plain(q1, h2, valid, lo, table, depth: int, num_nodes: int):
+    """The torch form of the JAX package's _dup_scan_stats_impl: a loop
+    over the ranks with scatter_add_ / scatter_reduce_(amin) over a
+    sentinel column, as stats_accum_plain does. Returns (cnt, kmin) int32
+    [R, N]: matches of each row's windows at each node, and the lowest
+    window index of those (INT32_MAX where cnt is 0)."""
+    R, K = q1.shape
+    dev = q1.device
+    kidx = torch.arange(K, dtype=torch.int32, device=dev).expand(R, K)
+    cnt = torch.zeros((R, num_nodes + 1), dtype=torch.int32, device=dev)
+    kmin = torch.full((R, num_nodes + 1), INF, dtype=torch.int32,
+                      device=dev)
+    for d in range(depth):
+        m, node = _rank_matches(q1, h2, valid, lo, table,
+                                torch.tensor([d], device=dev))
+        m, node = m[..., 0], node[..., 0]
+        idx = torch.where(m, node, num_nodes).to(torch.int64)
+        cnt.scatter_add_(1, idx, m.to(torch.int32))
+        kmin.scatter_reduce_(1, idx, torch.where(m, kidx, INF),
+                             reduce="amin", include_self=True)
+    return cnt[:, :num_nodes], kmin[:, :num_nodes]
+
+
+def dup_scan_plain(q1, h2, valid, lo, table, depth: int):
+    """The torch form of the JAX package's _sparse_expand_matches: per-slot
+    (node_key, kidx_v), int32 [R, K * depth] each, slot k * depth + d of a
+    row holding the matched entry's node and k where window k matches at
+    rank d, INT32_MAX in both for a miss."""
+    R, K = q1.shape
+    d = torch.arange(depth, dtype=torch.int64, device=q1.device)
+    m, node = _rank_matches(q1, h2, valid, lo, table, d)
+    kidx = torch.arange(K, dtype=torch.int32, device=q1.device)
+    node_key = torch.where(m, node, INF).to(torch.int32)
+    kidx_v = torch.where(m, kidx[None, :, None], INF).to(torch.int32)
+    return node_key.reshape(R, K * depth), kidx_v.reshape(R, K * depth)
+
+
+def _check_classic(q1, h2, valid, lo, table, depth: int) -> None:
+    """Checks a classic kernel's operands on the card."""
     for t, name in zip((q1, h2, lo), ("q1", "h2", "lo")):
         _expect(t, name, torch.int32, 2)
     _expect(valid, "valid", torch.bool, 2)
-    for t, name in zip((tab_h1, tab_h2, tab_node),
-                       ("tab_h1", "tab_h2", "tab_node")):
-        _expect(t, name, torch.int32, 1)
-    R, K = q1.shape
-    M = tab_h1.shape[0]
-    if (h2.shape != q1.shape or valid.shape != q1.shape
-            or lo.shape != q1.shape or tab_h2.shape[0] != M
-            or tab_node.shape[0] != M):
+    _expect(table, "table record", torch.int32, 2)
+    if h2.shape != q1.shape or valid.shape != q1.shape \
+            or lo.shape != q1.shape:
         raise ValueError(f"shapes q1{tuple(q1.shape)} h2{tuple(h2.shape)} "
-                         f"valid{tuple(valid.shape)} lo{tuple(lo.shape)} "
-                         f"table {M}/{tab_h2.shape[0]}/{tab_node.shape[0]}")
-    if depth < 1 or M < 1:
-        raise ValueError(f"depth {depth} and table length {M} must be >= 1")
-    out = torch.empty((R, K * depth), dtype=torch.int32, device=q1.device)
-    if out.numel():
+                         f"valid{tuple(valid.shape)} lo{tuple(lo.shape)}")
+    if table.shape[1] != 4 or table.data_ptr() % 16:
+        raise ValueError(f"table record: expected a 16-byte aligned "
+                         f"[M, 4], got {tuple(table.shape)}")
+    if depth < 1 or table.shape[0] < 1:
+        raise ValueError(f"depth {depth} and table length "
+                         f"{table.shape[0]} must be >= 1")
+
+
+def dup_stats(q1, h2, valid, lo, table, depth: int, num_nodes: int):
+    """(cnt, kmin) int32 [R, N] of the windows' duplicate-run matches: the
+    contract of dup_stats_plain (the table must be sorted by h1, as the
+    join needs)."""
+    if not _on_cuda(q1, h2, valid, lo, table):
+        return dup_stats_plain(q1, h2, valid, lo, table, depth, num_nodes)
+    _check_classic(q1, h2, valid, lo, table, depth)
+    R, K = q1.shape
+    cnt = torch.empty((R, num_nodes), dtype=torch.int32, device=q1.device)
+    kmin = torch.empty_like(cnt)
+    if cnt.numel():
+        _launch("dup_stats", _lib().vt_dup_stats, q1.device, q1.data_ptr(),
+                h2.data_ptr(), valid.data_ptr(), lo.data_ptr(),
+                table.data_ptr(), R, K, depth, table.shape[0], num_nodes,
+                cnt.data_ptr(), kmin.data_ptr())
+    return cnt, kmin
+
+
+def dup_scan(q1, h2, valid, lo, table, depth: int):
+    """(node_key, kidx_v) int32 [R, K * depth] of the windows'
+    duplicate-run matches: the contract of dup_scan_plain (the table must
+    be sorted by h1, as the join needs)."""
+    if not _on_cuda(q1, h2, valid, lo, table):
+        return dup_scan_plain(q1, h2, valid, lo, table, depth)
+    _check_classic(q1, h2, valid, lo, table, depth)
+    R, K = q1.shape
+    node_key = torch.empty((R, K * depth), dtype=torch.int32,
+                           device=q1.device)
+    kidx_v = torch.empty_like(node_key)
+    if node_key.numel():
         _launch("dup_scan", _lib().vt_dup_scan, q1.device, q1.data_ptr(),
                 h2.data_ptr(), valid.data_ptr(), lo.data_ptr(),
-                tab_h1.data_ptr(), tab_h2.data_ptr(), tab_node.data_ptr(),
-                R * K, depth, M, num_nodes, out.data_ptr())
-    return out
+                table.data_ptr(), R * K, K, depth, table.shape[0],
+                node_key.data_ptr(), kidx_v.data_ptr())
+    return node_key, kidx_v

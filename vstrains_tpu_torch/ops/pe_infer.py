@@ -21,11 +21,11 @@ end-batch, forward reads first:
      probe (graphs beyond the packing: more than 2^18 nodes or duplicate
      runs longer than 16; the 'sortjoin', 'lookup' and 'searchsorted'
      modes): each window's first table position with h1 >= q1 (`_join_lo`,
-     or the bucket index's `_lookup_lo`), then the duplicate-run scan with
-     the full 32-bit h1 and h2 equality — CUDA kernel `dup_scan`
-     (csrc/dup_scan.cu);
+     or the bucket index's `_lookup_lo`), then a walk of the duplicate run
+     from there with the full 32-bit h1 and h2 equality, fused with step 3
+     — CUDA kernel `dup_stats` (csrc/dup_stats.cu);
   3. per-(read, node) hit count and lowest window index — CUDA kernel
-     `stats_accum`;
+     `stats_accum` (the packed probe's slots);
   4. the reference's saturation test in exact int32 arithmetic
      (`_saturate`; the min ref coordinate cancels, see the JAX module's
      docstring);
@@ -35,8 +35,9 @@ end-batch, forward reads first:
 
 Graphs above the dense/sparse cutover (the JAX package's memory rule,
 `dense_budget_rows`) take the sparse engine instead of steps 3-5: the probe's
-per-slot node ids are row-sorted by (node, window) — CUDA kernel
-`sort_rows` (csrc/sort_rows.cu) — and reduced to per-run counts and
+per-slot (node, window) pairs (the classic probe's from the CUDA kernel
+`dup_scan`, csrc/dup_scan.cu) are row-sorted by (node, window) — CUDA
+kernel `sort_rows` (csrc/sort_rows.cu) — and reduced to per-run counts and
 lowest windows by running scans; the saturated nodes of each read
 compact into a (2B, cap) list, and the host expands them into COO link
 keys (`PESparseResult`).
@@ -339,7 +340,7 @@ def build_kmer_table(seqs: Sequence[str], split_len: int,
 # The secondary-hash check narrows from 32 to h2_bits bits
 # (docs/DIVERGENCES.md #12). Graphs beyond 2^18 nodes, or with duplicate
 # h1 runs longer than 16, take the classic probe (_join_lo / _lookup_lo
-# and the dup_scan kernel).
+# and the dup_stats or dup_scan kernel).
 # --------------------------------------------------------------------------
 
 _SORTFILL_MAX_NODE_BITS = 18
@@ -478,8 +479,9 @@ class _DeviceTable:
     depth: int              # duplicate ranks a window scans
     pays: Optional[torch.Tensor] = None     # sortfill: int32 [M, depth]
     node_bits: int = 9
-    h2: Optional[torch.Tensor] = None       # join, lookup: int32 [M]
-    node: Optional[torch.Tensor] = None     # join, lookup: int32 [M]
+    # join, lookup: the table dup_stats / dup_scan walk, one int32 [M, 4]
+    # record (h1, h2, node, 0) an entry (cuda_kernels.table_record)
+    rec: Optional[torch.Tensor] = None
     bstarts: Optional[torch.Tensor] = None  # lookup: int32 [2^b + 1]
     shift: int = 32
     scan_depth: int = 1
@@ -496,33 +498,34 @@ def _device_table(table: KmerTable, probe: str, dev) -> _DeviceTable:
             _build_sortfill_payloads(table, tab.node_bits)).to(dev)
         tab.depth = tab.pays.shape[1]
         return tab
-    tab.h2 = torch.from_numpy(table.h2).to(dev)
-    tab.node = torch.from_numpy(table.node).to(dev)
+    tab.rec = ck.table_record(tab.h1, torch.from_numpy(table.h2).to(dev),
+                              torch.from_numpy(table.node).to(dev))
     if probe == "lookup":
         starts, tab.shift, tab.scan_depth = _bucket_index(table)
         tab.bstarts = torch.from_numpy(starts).to(dev)
     return tab
 
 
-def _node_slots(q1, h2, valid, tab: _DeviceTable) -> torch.Tensor:
-    """Per-slot matched node ids of an end-batch, int32 [R, K * depth]
-    (k-major slots, sentinel num_nodes for misses), by the table's probe."""
-    if tab.probe == "sortfill":
-        return _sortfill_probe(q1, h2, valid, tab.h1, tab.pays,
-                               tab.node_bits, tab.num_nodes)
+def _classic_lo(q1, tab: _DeviceTable) -> torch.Tensor:
+    """Each window's table position for the classic probe's walk, int32
+    [R, K]: the bucket lookup's or the join's."""
     if tab.probe == "lookup":
-        lo = _lookup_lo(q1, tab.bstarts, tab.h1, tab.shift, tab.scan_depth)
-    else:
-        lo = _join_lo(q1, tab.h1)
-    return ck.dup_scan(q1, h2, valid, lo, tab.h1, tab.h2, tab.node,
-                       tab.depth, tab.num_nodes)
+        return _lookup_lo(q1, tab.bstarts, tab.h1, tab.shift, tab.scan_depth)
+    return _join_lo(q1, tab.h1)
 
 
 def _batch_core(q1, h2, valid, lens, tab: _DeviceTable, acc_nm, acc_sm):
     """Probe + stats + saturation + pair counts of one stacked end-batch,
-    added into the int64 accumulators in place."""
-    node_t = _node_slots(q1, h2, valid, tab)
-    cnt, kmin = ck.stats_accum(node_t, tab.depth, tab.num_nodes)
+    added into the int64 accumulators in place: the packed probe's slots
+    through stats_accum, or the classic probe's walk fused with the stats
+    (dup_stats)."""
+    if tab.probe == "sortfill":
+        node_t = _sortfill_probe(q1, h2, valid, tab.h1, tab.pays,
+                                 tab.node_bits, tab.num_nodes)
+        cnt, kmin = ck.stats_accum(node_t, tab.depth, tab.num_nodes)
+    else:
+        cnt, kmin = ck.dup_stats(q1, h2, valid, _classic_lo(q1, tab),
+                                 tab.rec, tab.depth, tab.num_nodes)
     sat = _saturate(cnt, kmin, lens, tab.seq_lens, tab.split_len)
     B = sat.shape[0] // 2
     ck.pair_counts(sat[:B], sat[B:], acc_nm, acc_sm)
@@ -703,20 +706,26 @@ def _sparse_sat_tail(node_key, kidx_v, lens, seq_lens, split_len: int,
 def _sparse_core(q1, h2, valid, lens, tab: _DeviceTable, cap: int,
                  cap_c: int):
     """Probe + sparse tail of one stacked end-batch: (out [2B, cap]
-    saturated node ids ascending, -1 padded; overflow; counts). The probe's
-    slots in the tail's (node, k-index) form: the JAX package's
-    _sparse_expand_matches for the classic probe."""
+    saturated node ids ascending, -1 padded; overflow; counts). The tail
+    takes per-slot (node, k-index) planes: the classic probe's straight
+    from dup_scan (the JAX package's _sparse_expand_matches), the packed
+    probe's built from its slots."""
     N = tab.num_nodes
     depth = tab.depth
-    node_t = _node_slots(q1, h2, valid, tab)
-    B2, R = node_t.shape
-    matched = node_t < N
-    node_key = torch.where(matched, node_t, _I32_MAX)
-    kidx = (torch.arange(R, dtype=torch.int32, device=node_t.device)
-            // depth).expand(B2, R)
-    kidx_v = torch.where(matched, kidx, _I32_MAX)
+    if tab.probe == "sortfill":
+        node_t = _sortfill_probe(q1, h2, valid, tab.h1, tab.pays,
+                                 tab.node_bits, N)
+        B2, R = node_t.shape
+        matched = node_t < N
+        node_key = torch.where(matched, node_t, _I32_MAX)
+        kidx = (torch.arange(R, dtype=torch.int32, device=node_t.device)
+                // depth).expand(B2, R)
+        kidx_v = torch.where(matched, kidx, _I32_MAX)
+    else:
+        node_key, kidx_v = ck.dup_scan(q1, h2, valid, _classic_lo(q1, tab),
+                                       tab.rec, depth)
     return _sparse_sat_tail(node_key, kidx_v, lens, tab.seq_lens,
-                            tab.split_len, cap, kmax=R // depth,
+                            tab.split_len, cap, kmax=q1.shape[1],
                             cap_c=cap_c)
 
 
