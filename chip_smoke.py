@@ -70,7 +70,39 @@ without the final result line):
      classic join; 1,048,576 pairs, seed 0): host seconds of each set-up
      step, a checked run of 65,536 pairs against the JAX record "r300k",
      window_hashes, dup_scan and sort_rows at that run's shapes, then the
-     timed run on every pair.
+     timed run on every pair;
+ 10. BASELINE config 5, the 15-strain metaviral sample
+     (`evals/synth.make_multi_component_dataset`: 3 components x 5
+     strains, seed 3), through the port CLI on cuda with --per-component
+     and --component-workers 1 and 2 (spawned workers): outputs
+     byte-equal to the JAX record "metaviral", all 15 haplotypes
+     recovered, the wall printed;
+ 11. `parallel.mesh.infer_pe_links_sharded` on the HIV graph and reads in
+     a torch.distributed world of one rank over NCCL: write_pe_files
+     byte-equal to the HIV record;
+ 12. two ranks spawned on cuda:0 over gloo (`--rank`), at (data, model)
+     = (2, 1) and (1, 2) in turn: the HIV dense engine (packed probe,
+     stats_accum on each shard), the repeat cell dense (dup_stats on
+     each shard) and sparse (dup_scan, sort_rows in the TP merge), and
+     the N = 50k cell's checked 262,144 pairs (sparse, sort_rows): every
+     rank's files byte-equal to the JAX records "hiv", "repeat" and
+     "r50k";
+ 13. on the same two ranks, `parallel.distributed.
+     infer_pe_links_multihost` on HIV stripes and --per-component on
+     the metaviral sample (components round-robin over the ranks),
+     against the same records;
+ 14. `sp_window_hashes` over the two ranks on a 100 kb seeded sequence
+     against the host hashes, and window_hashes_bytes against its plain
+     version at one rank's block shape, timed; and
+     `parallel.mesh.build_table_auto` over the two ranks (its 16 nodes
+     of 8-60 kb hashed sequence-parallel, 2,000 nodes of 200-2,000 bp
+     by the host C++ build) against the host C++ build alone: the same
+     table, both walls printed.
+     Each rank prints its launch counts and wall a job (pair_counts only
+     on model rank 0) and replays every kernel call of each job, at each
+     shape its shard gave the kernel, against the plain version
+     (bit-equal). Two ranks on one card check correctness and the
+     shards' kernel shapes, not scaling; no run here has two cards.
 dup_stats and dup_scan are timed beside a bound that counts each table
 entry their walks examine once (dup_table_bytes), printed.
 The build also prints ptxas's registers and spills per kernel and, from
@@ -146,11 +178,11 @@ def generate(mod: str, fn: str, data_dir: str, kwargs: dict) -> dict:
 
 
 def run_cli(rec: dict, data_dir: str, out_dir: str,
-            pe_batch: int = None) -> float:
+            pe_batch: int = None, extra=()) -> float:
     """The port CLI, in this process, as a user calls it, on cuda."""
     from vstrains_tpu_torch import cli
     argv = [a.replace("{data}", data_dir).replace("{out}", out_dir)
-            for a in rec["cli"]] + ["--device", "cuda"]
+            for a in rec["cli"]] + ["--device", "cuda", *extra]
     if pe_batch is not None:
         argv[argv.index("--pe-batch-size") + 1] = str(pe_batch)
     shutil.rmtree(out_dir, ignore_errors=True)
@@ -778,6 +810,8 @@ def cell_50k(rec: dict, rng) -> dict:
 
     # (a) the checked run, which is also the timed run's warm-up
     n_chk = rec["checked_pairs"]
+    save_workload(R50K_INPUTS, refs, k, fc[:n_chk], fl[:n_chk], rc[:n_chk],
+                  rl[:n_chk])
     launches, (res, sec) = count_launches(
         "50k checked run", lambda: engine(n_chk),
         ("window_hashes", "sort_rows"),
@@ -1163,6 +1197,7 @@ def repeat_cell(rec: dict) -> tuple:
     fc, fl = _pack([x.encode() for x in fwd])
     rc, rl = _pack([x.encode() for x in rve])
     reads = ReadPairBatch(fc, fl, rc, rl, 0, 0, len(fl))
+    save_workload(REPEAT_INPUTS, refs, k, fc, fl, rc, rl)
     gen_s = time.time() - t0
     t0 = time.time()
     table = P.build_kmer_table(refs, k + 1)
@@ -1328,6 +1363,564 @@ def cell_300k(rec: dict, rng) -> list:
         f"{res.short_keys.size} same-end links; launches of the checked "
         f"run {json.dumps(launches)}")
     return checks
+
+
+# --------------------------------------------------------------------------
+# phases 10-14: per-component extraction and the parallel layer
+# --------------------------------------------------------------------------
+
+REPEAT_INPUTS = os.path.join(WORK, "repeat_inputs.npz")
+R50K_INPUTS = os.path.join(WORK, "r50k_inputs.npz")
+SP_SEQ_LEN = 100_000
+SP_SPLIT_LEN = 56   # the HIV graph's k = 55, plus one
+SP_TABLE_NODES = (2000, 16)  # nodes of 200-2,000 bp, and of 8-60 kb
+DENSE = ("window_hashes", "stats_accum", "pair_counts")
+ALL = ("window_hashes", "stats_accum", "pair_counts", "sort_rows",
+       "dup_scan", "dup_stats")
+
+
+def save_workload(path: str, refs, k: int, fc, fl, rc, rl) -> None:
+    """A generated cell's node sequences and packed read pairs, for the
+    ranks of phase 12 to load instead of generating again."""
+    import numpy as np
+    np.savez(path, refs=np.array(refs), k=k, fc=fc, fl=fl, rc=rc, rl=rl)
+
+
+def load_workload(path: str):
+    import numpy as np
+
+    from vstrains_tpu_torch.core.fastq import ReadPairBatch
+    z = np.load(path)
+    refs = [str(x) for x in z["refs"]]
+    return ([str(i) for i in range(len(refs))], refs, int(z["k"]),
+            ReadPairBatch(z["fc"], z["fl"], z["rc"], z["rl"], 0, 0,
+                          int(z["fl"].shape[0])))
+
+
+def hiv_inputs(hiv_out: str, hiv_data: str, stripe=None):
+    """The dense HIV CLI run's simplified graph (ids, sequences, k) and
+    its reads as the pipeline loads them, or one rank's stripe of them
+    (parallel.distributed.host_read_stripe)."""
+    from vstrains_tpu_torch.core.fastq import load_read_pairs
+    from vstrains_tpu_torch.core.gfa import load_flipped_gfa
+    from vstrains_tpu_torch.parallel.distributed import host_read_stripe
+
+    view = load_flipped_gfa(os.path.join(hiv_out, "gfa", "s_graph_L1.gfa"))
+    ids = list(view.nodes.keys())
+    seqs = [view.nodes[i].seq for i in ids]
+    ksize = next(iter(view.edges.values())).overlap
+    fq = [os.path.join(hiv_data, f"reads_{e}.fastq") for e in (1, 2)]
+    if stripe is None:
+        reads = load_read_pairs(*fq, ksize + 1, pad_to_multiple=32)
+    else:
+        reads = host_read_stripe(*fq, ksize + 1, *stripe)
+    return ids, seqs, ksize, reads
+
+
+def write_links(res, out: str, writer: str) -> None:
+    from vstrains_tpu_torch.ops import pe_infer as P
+    os.makedirs(out, exist_ok=True)
+    getattr(P, writer)(res, os.path.join(out, "pe_info"),
+                       os.path.join(out, "st_info"))
+
+
+def metaviral_phase(rec: dict) -> str:
+    """(10) BASELINE config 5 through the port CLI on cuda with
+    --per-component and --component-workers 1 and 2: outputs byte-equal to
+    the JAX record "metaviral", every planted haplotype recovered.
+    Returns the dataset's directory."""
+    from vstrains_tpu_torch.evals.nga50 import load_fasta
+
+    data = os.path.join(WORK, "metaviral_data")
+    ds = generate("synth", "make_multi_component_dataset", data,
+                  rec["generator"]["kwargs"])
+    check_digests("metaviral input", data, rec["inputs"])
+    for w in (1, 2):
+        out = os.path.join(WORK, f"metaviral_w{w}")
+        _, wall = count_launches(
+            f"metaviral --per-component --component-workers {w}",
+            lambda out=out, w=w: run_cli(
+                rec, data, out, extra=("--component-workers", str(w))),
+            DENSE, ("sort_rows", "dup_scan", "dup_stats"))
+        check_digests(f"metaviral ({w} worker(s))", out, rec["outputs"])
+        strains = set(load_fasta(os.path.join(out, "strain.fasta"))
+                      .values())
+        hits = sum(h in strains for h in ds["haplotypes"])
+        if hits != rec["strains"]:
+            raise AssertionError(f"metaviral: {hits}/{rec['strains']} "
+                                 "haplotypes recovered")
+        with open(os.path.join(out, "timings.json")) as fh:
+            stages = {x["stage"]: x["seconds"]
+                      for x in json.load(fh)["stages"]}
+        say(f"metaviral --per-component, {w} worker(s): port CLI "
+            f"{wall:.2f} s (per_component_extraction "
+            f"{stages['per_component_extraction']:.2f} s, pe_inference "
+            f"{stages['pe_inference']:.3f} s); {hits}/{rec['strains']} "
+            "haplotypes recovered; outputs byte-equal to the JAX record")
+    return data
+
+
+def nccl_world_phase(hiv: dict, hiv_data: str, hiv_out: str) -> None:
+    """(11) infer_pe_links_sharded on the HIV graph and reads in a
+    torch.distributed world of one rank over NCCL (a 1 x 1 mesh, the final
+    reduce through NCCL), called twice (the first call's reduce sets up
+    the NCCL communicator): write_pe_files byte-equal to the HIV record,
+    the second call's links equal to the first's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from vstrains_tpu_torch.parallel.distributed import init_distributed
+    from vstrains_tpu_torch.parallel.mesh import (infer_pe_links_sharded,
+                                                  make_mesh)
+
+    ids, seqs, ksize, reads = hiv_inputs(hiv_out, hiv_data)
+    init_distributed(f"file://{WORK}/nccl_store", 1, 0, device="cuda")
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl":
+            raise AssertionError(f"world of one on cuda: backend {backend}")
+        mesh = make_mesh(1, 1, device="cuda")
+
+        def run():
+            torch.cuda.synchronize()
+            t = time.time()
+            res = infer_pe_links_sharded(ids, seqs, reads, ksize, mesh,
+                                         batch_size=16384)
+            torch.cuda.synchronize()
+            return res, time.time() - t
+
+        walls = []
+        for i in range(2):
+            _, (res, sec) = count_launches(
+                f"hiv sharded, NCCL world of 1, call {i + 1}", run, DENSE,
+                ("sort_rows", "dup_scan", "dup_stats"))
+            walls.append(sec)
+            if i == 0:
+                first = res
+            elif not (np.array_equal(res.node_mat, first.node_mat)
+                      and np.array_equal(res.short_mat, first.short_mat)):
+                raise AssertionError("hiv sharded: the second call's links "
+                                     "differ from the first's")
+    finally:
+        dist.destroy_process_group()
+    out = os.path.join(WORK, "hiv_nccl")
+    write_links(first, out, "write_pe_files")
+    check_digests("HIV sharded (NCCL world of 1)", out,
+                  {"pe_info": hiv["outputs"]["aln/pe_info"],
+                   "st_info": hiv["outputs"]["aln/st_info"]})
+    say(f"hiv sharded, NCCL world of 1 (mesh 1 x 1): engine {walls[0]:.4f} s "
+        f"(first call), {walls[1]:.4f} s (second), the table built in each "
+        "call; pe_info/st_info byte-equal to the JAX record")
+
+
+def rank_jobs(hiv_data: str, hiv_out: str, meta_data: str,
+              expected: dict) -> list:
+    """Phases 12-14 as one job list that both ranks run in order."""
+    hiv = {"pe_info": expected["hiv"]["outputs"]["aln/pe_info"],
+           "st_info": expected["hiv"]["outputs"]["aln/st_info"]}
+    cells = (("hiv_dense", "sharded", {"hiv": True}, "write_pe_files", hiv,
+              DENSE),
+             ("repeat_dense", "sharded", {"npz": REPEAT_INPUTS},
+              "write_pe_files", expected["repeat"]["outputs"],
+              ("window_hashes", "dup_stats", "pair_counts")),
+             ("repeat_sparse", "sparse_sharded", {"npz": REPEAT_INPUTS},
+              "write_pe_files", expected["repeat"]["outputs"],
+              ("window_hashes", "dup_scan", "sort_rows")),
+             ("r50k", "sharded", {"npz": R50K_INPUTS},
+              "write_pe_files_sparse", expected["r50k"]["outputs"],
+              ("window_hashes", "sort_rows")))
+    jobs = []
+    for data, model in ((2, 1), (1, 2)):
+        for name, kind, src, writer, digests, on in cells:
+            jobs.append(dict(
+                phase=12, name=f"{name} {data}x{model}", kind=kind,
+                data=data, model=model, writer=writer, digests=digests,
+                on=on, out=os.path.join(WORK, "ranks",
+                                        f"{name}_{data}x{model}"),
+                hiv_data=hiv_data, hiv_out=hiv_out, **src))
+    jobs.append(dict(phase=13, name="hiv multihost", kind="multihost",
+                     writer="write_pe_files", digests=hiv, on=DENSE,
+                     hiv_data=hiv_data, hiv_out=hiv_out,
+                     out=os.path.join(WORK, "ranks", "hiv_multihost")))
+    meta = expected["metaviral"]
+    jobs.append(dict(phase=13, name="metaviral --per-component",
+                     kind="cli", cli=meta["cli"], data_dir=meta_data,
+                     digests=meta["outputs"], on=DENSE,
+                     out=os.path.join(WORK, "ranks", "metaviral")))
+    jobs.append(dict(phase=14, name="sp_window_hashes 100 kb", kind="sp",
+                     on=("window_hashes",),
+                     out=os.path.join(WORK, "ranks", "sp")))
+    jobs.append(dict(phase=14, name="build_table_auto (SP) vs host C++",
+                     kind="sp_table", on=("window_hashes",),
+                     out=os.path.join(WORK, "ranks", "sp_table")))
+    return jobs
+
+
+def sp_sequence():
+    import numpy as np
+    rng = np.random.RandomState(14)
+    return rng.randint(0, 4, SP_SEQ_LEN).astype(np.uint8)
+
+
+def sp_table_graph() -> list:
+    """A seeded graph for the table-build race: SP_TABLE_NODES short and
+    long node sequences, in a shuffled order."""
+    import numpy as np
+    rng = np.random.RandomState(15)
+    n_short, n_long = SP_TABLE_NODES
+    lens = np.concatenate([rng.randint(200, 2001, n_short),
+                           rng.randint(8192, 60001, n_long)])
+    rng.shuffle(lens)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    return [bases[rng.randint(0, 4, n)].tobytes().decode() for n in lens]
+
+
+def rank_job(job: dict, rank: int, world: int):
+    """One job on this rank: the timed call, then its outputs (written
+    after the clock stops)."""
+    import numpy as np
+    import torch
+
+    from vstrains_tpu_torch.parallel import distributed as D
+    from vstrains_tpu_torch.parallel import mesh as M
+
+    kind = job["kind"]
+    if kind in ("sharded", "sparse_sharded"):
+        if job.get("hiv"):
+            ids, seqs, k, reads = hiv_inputs(job["hiv_out"], job["hiv_data"])
+        else:
+            ids, seqs, k, reads = load_workload(job["npz"])
+        mesh = M.make_mesh(job["data"], job["model"], device="cuda:0")
+        fn = (M.infer_pe_links_sharded if kind == "sharded"
+              else M.infer_pe_links_sparse_sharded)
+        torch.cuda.synchronize()
+        t = time.time()
+        res = fn(ids, seqs, reads, k, mesh, batch_size=16384)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        write_links(res, f"{job['out']}.r{rank}", job["writer"])
+        return wall, {"model_rank": mesh.model_rank}
+    if kind == "multihost":
+        ids, seqs, k, stripe = hiv_inputs(job["hiv_out"], job["hiv_data"],
+                                          stripe=(rank, world))
+        torch.cuda.synchronize()
+        t = time.time()
+        res = D.infer_pe_links_multihost(ids, seqs, stripe, k,
+                                         batch_size=16384, device="cuda:0")
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        write_links(res, f"{job['out']}.r{rank}", job["writer"])
+        return wall, {"stripe_pairs": stripe.num_pairs, "model_rank": 0}
+    if kind == "cli":
+        from vstrains_tpu_torch import cli
+        out = f"{job['out']}.r{rank}"
+        argv = [a.replace("{data}", job["data_dir"]).replace("{out}", out)
+                for a in job["cli"]] + ["--device", "cuda"]
+        t = time.time()
+        if cli.main(argv) != 0:
+            raise RuntimeError(f"port CLI failed on rank {rank}: {argv}")
+        return time.time() - t, {"model_rank": 0}
+    if kind == "sp":
+        mesh = M.make_mesh(model=1, device="cuda:0")
+        torch.cuda.synchronize()
+        t = time.time()
+        h1, h2, valid = M.sp_window_hashes(sp_sequence(), SP_SPLIT_LEN, mesh)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        np.savez(f"{job['out']}.r{rank}.npz", h1=h1, h2=h2, valid=valid)
+        return wall, {"model_rank": 0}
+    if kind == "sp_table":
+        from vstrains_tpu_torch.ops.pe_infer import build_kmer_table
+        seqs = sp_table_graph()
+        walls = {"sp": [], "host": []}
+        for _ in range(2):  # alternated: SP, host C++, SP, host C++
+            torch.cuda.synchronize()
+            t = time.time()
+            sp = M.build_table_auto(seqs, SP_SPLIT_LEN, "cuda:0")
+            torch.cuda.synchronize()
+            walls["sp"].append(time.time() - t)
+            t = time.time()
+            host = build_kmer_table(seqs, SP_SPLIT_LEN)
+            walls["host"].append(time.time() - t)
+        for f in ("h1_biased", "h2", "node", "offset"):
+            if not np.array_equal(getattr(sp, f), getattr(host, f)):
+                raise AssertionError(f"build_table_auto rank {rank}: {f} "
+                                     "differs from the host C++ build")
+        if sp.max_dup != host.max_dup:
+            raise AssertionError(f"build_table_auto rank {rank}: max_dup")
+        return walls["sp"][-1], {"model_rank": 0, "walls": walls,
+                                 "entries": host.num_entries}
+    raise ValueError(f"unknown rank job {kind!r}")
+
+
+# the kernel wrappers of ops/cuda_kernels, by the kernel each launches
+WRAPPERS = {"window_hashes_wire": "window_hashes",
+            "window_hashes_bytes": "window_hashes",
+            "stats_accum": "stats_accum", "pair_counts": "pair_counts",
+            "sort_rows": "sort_rows", "dup_scan": "dup_scan",
+            "dup_stats": "dup_stats"}
+
+
+class FirstCalls:
+    """While the block runs, keeps the arguments of each kernel wrapper's
+    first call at each shape (the wrappers run unchanged): the shapes a
+    rank's shard gives each kernel of its path, replayed afterwards
+    against the plain versions by `replay_checks`."""
+
+    def __enter__(self):
+        from vstrains_tpu_torch.ops import cuda_kernels as ck
+        self.calls = {}
+        self.real = {n: getattr(ck, n) for n in WRAPPERS}
+        for name in WRAPPERS:
+            setattr(ck, name, self._spy(name))
+        return self.calls
+
+    def _spy(self, name):
+        def call(*args):
+            shape = " ".join("x".join(map(str, a.shape)) for a in args
+                             if hasattr(a, "shape"))
+            self.calls.setdefault((name, shape), args)
+            return self.real[name](*args)
+        return call
+
+    def __exit__(self, *exc):
+        from vstrains_tpu_torch.ops import cuda_kernels as ck
+        for name, fn in self.real.items():
+            setattr(ck, name, fn)
+
+
+class CollectiveClock:
+    """While the block runs, times each collective that parallel/mesh.py
+    and parallel/distributed.py call (the card synchronised before and
+    after, so the time is the collective's own: host staging and the
+    exchange) and counts its calls and the bytes this rank sends."""
+
+    NAMES = {"mesh": ("all_reduce", "all_gather_cat", "all_gather_ragged"),
+             "distributed": ("all_reduce",)}
+
+    def __enter__(self):
+        import importlib
+        self.stats = {"calls": 0, "seconds": 0.0, "bytes": 0}
+        self.real = []
+        for mod, names in self.NAMES.items():
+            m = importlib.import_module(f"vstrains_tpu_torch.parallel.{mod}")
+            for name in names:
+                fn = getattr(m, name)
+                self.real.append((m, name, fn))
+                setattr(m, name, self._clocked(fn))
+        return self.stats
+
+    def _clocked(self, fn):
+        import torch
+
+        def call(x, *args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(x, *args, **kw)
+            torch.cuda.synchronize()
+            self.stats["seconds"] += time.perf_counter() - t
+            self.stats["calls"] += 1
+            self.stats["bytes"] += int(x.nbytes)
+            return out
+        return call
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.real:
+            setattr(m, name, fn)
+
+
+def replay_checks(calls: dict, label: str) -> list:
+    """Each kept call through the kernel and through its plain version
+    (pair_counts into fresh zero accumulators): bit-equal, or raise."""
+    import torch
+
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    plain = {"window_hashes_bytes": ck.window_hashes_plain,
+             "stats_accum": ck.stats_accum_plain,
+             "sort_rows": ck.sort_rows_plain, "dup_scan": ck.dup_scan_plain,
+             "dup_stats": ck.dup_stats_plain}
+    checks = []
+    for (name, shape), args in calls.items():
+        if name == "pair_counts":
+            f, r, acc, _ = args
+            z = [torch.zeros_like(acc) for _ in range(4)]
+            ck.pair_counts(f, r, z[0], z[1])
+            ck.pair_counts_plain(f, r, z[2], z[3])
+            got, want = z[:2], z[2:]
+        elif name == "window_hashes_wire":
+            wire, T, L = args
+            got = ck.window_hashes_wire(*args)
+            want = ck.window_hashes_plain(*ck.unpack_wire_plain(wire, T), L)
+        else:
+            got, want = getattr(ck, name)(*args), plain[name](*args)
+        kernel = WRAPPERS[name]
+        err = max_abs_err(f"{kernel} ({label}, {shape})", got, want)
+        checks.append({"kernel": kernel, "shape": f"{label}: {name} {shape}",
+                       "max_abs_err": float(err)})
+    return checks
+
+
+def rank_main(rank: int, world: int, init: str, jobs_path: str) -> int:
+    """A rank of phases 12-14 (`chip_smoke.py --rank R WORLD INIT JOBS`):
+    on cuda:0 beside the other rank, over gloo; each job's launch counts
+    set to 0 just before it and read just after, its wall and outputs
+    written for the parent to check; then each kernel the job launched,
+    at each shape this rank gave it, against its plain version."""
+    import torch.distributed as dist
+
+    from vstrains_tpu_torch.ops import _build
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    from vstrains_tpu_torch.parallel.distributed import init_distributed
+
+    _build.load()  # the parent built it: load, do not time, the library
+    init_distributed(init, world, rank, device="cuda:0", backend="gloo")
+    with open(jobs_path) as fh:
+        jobs = json.load(fh)
+    for job in jobs:
+        ck.reset_launches()
+        with FirstCalls() as calls, CollectiveClock() as comm:
+            wall, info = rank_job(job, rank, world)
+        info.update(wall=wall, launches=dict(ck.LAUNCHES), collectives=comm)
+        info["checks"] = replay_checks(calls, f"{job['name']} rank {rank}")
+        del calls
+        with open(f"{job['out']}.r{rank}.json", "w") as fh:
+            json.dump(info, fh)
+        say(f"rank {rank}: {job['name']}: {wall:.3f} s, of it "
+            f"{comm['seconds']:.3f} s in {comm['calls']} collectives "
+            f"sending {comm['bytes'] / 1e6:.1f} MB; launches "
+            f"{json.dumps(info['launches'])}; "
+            f"{len(info['checks'])} kernel shapes bit-equal to plain")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def rank_world_phase(hiv_data: str, hiv_out: str, meta_data: str,
+                     expected: dict) -> dict:
+    """(12)-(14) Two ranks spawned on cuda:0 over gloo (`rank_main`): (12)
+    the sharded engines at (data, model) = (2, 1) and (1, 2) on HIV
+    (dense, packed probe: stats_accum on each shard), the repeat cell
+    (dense, classic: dup_stats on each shard; sparse: dup_scan on each
+    shard, sort_rows in the TP merge) and the N = 50k cell (sparse,
+    262,144 pairs: sort_rows in the tail and the TP merge); (13)
+    infer_pe_links_multihost on HIV stripes and --per-component on the
+    metaviral sample; (14) sp_window_hashes over both ranks. Every rank's
+    outputs byte-equal to the JAX records, each rank's launches checked
+    (pair_counts only on model rank 0), and each kernel a rank launched
+    held to its plain version at every shape the rank gave it. Returns
+    those checks. Two ranks on one card check correctness and each
+    shard's kernel shapes, not scaling."""
+    import numpy as np
+
+    from vstrains_tpu_torch.core.seq import window_hashes_np
+
+    os.makedirs(os.path.join(WORK, "ranks"))
+    jobs = rank_jobs(hiv_data, hiv_out, meta_data, expected)
+    jobs_path = os.path.join(WORK, "ranks", "jobs.json")
+    with open(jobs_path, "w") as fh:
+        json.dump(jobs, fh)
+    world = 2
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         str(world), f"file://{WORK}/ranks/store", jobs_path],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    world_s = time.time() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"rank {r} exited {p.returncode}:\n"
+                               f"{log[-6000:]}")
+        for line in log.splitlines():
+            if line.startswith(f"rank {r}: "):
+                say(line)
+    phases = {}
+    checks = []
+    for job in jobs:
+        for r in range(world):
+            with open(f"{job['out']}.r{r}.json") as fh:
+                info = json.load(fh)
+            got = info["launches"]
+            on = [k for k in job["on"] if k != "pair_counts"
+                  or info["model_rank"] == 0]
+            off = [k for k in ALL if k not in on]
+            if [k for k in on if got[k] <= 0] or [k for k in off
+                                                 if got[k] != 0]:
+                raise AssertionError(f"{job['name']} rank {r}: launches "
+                                     f"{got}, expected only {on}")
+            if job["kind"] == "sp_table":
+                say(f"build_table_auto rank {r}: {info['entries']} "
+                    "entries, equal to the host C++ build; walls (s) SP "
+                    f"{info['walls']['sp']}, host C++ "
+                    f"{info['walls']['host']}")
+            elif job["kind"] == "sp":
+                z = np.load(f"{job['out']}.r{r}.npz")
+                want = window_hashes_np(sp_sequence(), SP_SPLIT_LEN)
+                for a, b in zip((z["h1"], z["h2"], z["valid"]), want):
+                    if a.dtype != b.dtype or not np.array_equal(a, b):
+                        raise AssertionError(f"sp_window_hashes rank {r} "
+                                             "differs from the host hashes")
+            else:
+                check_digests(f"{job['name']} rank {r}",
+                              f"{job['out']}.r{r}", job["digests"])
+            unchecked = [k for k in on if not any(
+                c["kernel"] == k for c in info["checks"])]
+            if unchecked:
+                raise AssertionError(f"{job['name']} rank {r}: no "
+                                     f"per-shard check of {unchecked}")
+            checks += info["checks"]
+            if r == 0:
+                phases[job["phase"]] = phases.get(job["phase"], 0.0) + \
+                    info["wall"]
+        if job["kind"] == "sp_table":
+            continue
+        say(f"{job['name']}: outputs of both ranks byte-equal to the JAX "
+            "record" if job["kind"] != "sp" else
+            f"{job['name']}: both ranks' {SP_SEQ_LEN - SP_SPLIT_LEN + 1} "
+            "windows equal the host hashes")
+    say(f"rank world (2 ranks on one card, gloo): {world_s:.1f} s in all; "
+        "rank 0's job walls by phase (s): " + ", ".join(
+            f"{k}: {v:.2f}" for k, v in sorted(phases.items())))
+    say(f"per-shard kernel checks: {len(checks)} (kernel, rank, shape) "
+        "cases bit-equal to plain, by kernel " + json.dumps(
+            {k: sum(c["kernel"] == k for c in checks) for k in ALL}))
+    return checks
+
+
+def sp_kernel_check(world: int = 2) -> dict:
+    """(14) window_hashes_bytes against its plain version at the shape one
+    rank's SP block gives it: the block of SP_SEQ_LEN / world codes with
+    its halo, cut into rows of parallel.mesh._SP_ROW_WINDOWS windows."""
+    import torch
+
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    from vstrains_tpu_torch.parallel import mesh as M
+
+    L = SP_SPLIT_LEN
+    block = SP_SEQ_LEN // world
+    ext = torch.from_numpy(sp_sequence()[:block + L - 1]).cuda()
+    W = block
+    rows = -(-W // M._SP_ROW_WINDOWS)
+    width = M._SP_ROW_WINDOWS + L - 1
+    codes = torch.nn.functional.pad(
+        ext, (0, rows * M._SP_ROW_WINDOWS + L - 1 - ext.shape[0]),
+        value=255).unfold(0, width, M._SP_ROW_WINDOWS).contiguous()
+    lens = torch.full((rows,), width, dtype=torch.int32, device="cuda")
+    label = f"SP block, {rows} rows x T={width}"
+    return dict(compare(
+        f"window_hashes ({label}, split_len={L})",
+        lambda: ck.window_hashes_bytes(codes, lens, L),
+        lambda: ck.window_hashes_plain(codes, lens, L),
+        bound_=hash_bound(codes.numel() + 4 * rows, rows, M._SP_ROW_WINDOWS),
+        library=NO_LIBRARY_HASH), kernel="window_hashes", shape=label)
 
 
 _KERNEL_NAMES = ("pair_counts_kernel", "pack_words", "sort_rows_net",
@@ -1527,6 +2120,22 @@ def main() -> int:
     (rep_dense, rep_sparse, kres["dup_stats"], kres["dup_scan"],
      rep_plane) = repeat_cell(expected["repeat"])
     c300 = cell_300k(expected["r300k"], np.random.RandomState(4))
+    # 10. per-component extraction; 11. the sharded engine in an NCCL
+    # world of one; 12-14. two ranks on the card over gloo
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    meta_data = metaviral_phase(expected["metaviral"])
+    say(f"phase 10 (metaviral --per-component): {time.time() - t0:.1f} s")
+    t0 = time.time()
+    nccl_world_phase(hiv, hiv_data, hiv_out)
+    say(f"phase 11 (sharded engine, NCCL world of 1): "
+        f"{time.time() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    shard_checks = rank_world_phase(hiv_data, hiv_out, meta_data, expected)
+    sp_check = sp_kernel_check()
+    say(f"phases 12-14 (two ranks on one card): {time.time() - t0:.1f} s")
+
     launches["sort_rows"] = sparse_launches["sort_rows"]
     launches["dup_stats"] = rep_dense["dup_stats"]
     launches["dup_scan"] = rep_sparse["dup_scan"]
@@ -1537,7 +2146,7 @@ def main() -> int:
     kres["sort_rows"] = next(c for c in c50 if c["kernel"] == "sort_rows")
     others = kres["also"] + sparse_checks + [
         c for c in c50 if c is not kres["sort_rows"]] + hiv_dup + c300 + [
-        rep_plane]
+        rep_plane, sp_check]
     keys = ("shape", "ms", "plain_ms", "library_ms", "library", "bound_ms",
             "bound_by", "entries_walked", "distinct_entries", "table_bytes")
     kernels = []
@@ -1551,7 +2160,9 @@ def main() -> int:
                                      "entries_walked", "distinct_entries",
                                      "table_bytes")},
             also=[{k: c.get(k) for k in keys} for c in others
-                  if c["kernel"] == meta["name"]]))
+                  if c["kernel"] == meta["name"]],
+            shard_checks=sum(c["kernel"] == meta["name"]
+                             for c in shard_checks)))
     shutil.rmtree(WORK, ignore_errors=True)
     say(smi)  # again here, so that the card stays in a cut log's tail
     say(json.dumps({"kernels": kernels}))
@@ -1562,4 +2173,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                           sys.argv[5]))
     sys.exit(main())

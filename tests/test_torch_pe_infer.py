@@ -106,12 +106,9 @@ def test_wire_and_byte_feeds_agree():
         for kind, payload in TP._wire_batches(batch, 32,
                                               force_bytes=force_bytes):
             kinds.append(kind)
-            if kind == "wire":
-                TP._pe_batch_wire(torch.from_numpy(payload), T, tab, *acc)
-            else:
-                codes, lens = TP._stack_ends_np(*payload)
-                TP._pe_batch_bytes(torch.from_numpy(codes),
-                                   torch.from_numpy(lens), tab, *acc)
+            q1, h2, valid, lens = TP._hash_batch(kind, payload, T,
+                                                 tab.split_len, "cpu")
+            TP._batch_core(q1, h2, valid, lens, tab, *acc)
         assert set(kinds) == {"bytes" if force_bytes else "wire"}
         accs.append(acc)
     assert accs[0][0].sum() > 0

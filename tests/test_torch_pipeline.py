@@ -92,16 +92,24 @@ def test_pe_cli_matches_pipeline(runs, tmp_path):
             _sha(os.path.join(port, "aln", name))
 
 
-@pytest.mark.parametrize("extra,message", [
-    (["--per-component", "--device", "cpu"], "not yet ported"),
-    (["--device", "cuda"], "CUDA is not available"),
-])
-def test_cli_refuses_unported_and_missing_device(runs, tmp_path, extra,
-                                                 message):
-    if "cuda" in extra and torch.cuda.is_available():
+def test_cli_refuses_a_missing_device(runs, tmp_path):
+    if torch.cuda.is_available():
         pytest.skip("a CUDA device exists here")
     data, _, _ = runs
     out = str(tmp_path / "out")
-    assert port_cli.main(_argv(data, out) + extra) == 1
+    assert port_cli.main(_argv(data, out) + ["--device", "cuda"]) == 1
     with open(os.path.join(out, "vstrains.log")) as fh:
-        assert message in fh.read()
+        assert "CUDA is not available" in fh.read()
+
+
+def test_cli_per_component_on_one_component(runs, tmp_path):
+    """--per-component on a graph of one component takes the whole-graph
+    stages, as the JAX pipeline does: the outputs equal the plain run's
+    (the multi-component sample is tests/test_torch_components.py's)."""
+    data, _, outs = runs
+    out = str(tmp_path / "out")
+    assert port_cli.main(_argv(data, out) + ["--per-component",
+                                             "--device", "cpu"]) == 0
+    for name in SYNTH["outputs"]:
+        assert _sha(os.path.join(out, name)) == \
+            _sha(os.path.join(outs["port"], name)), name

@@ -28,7 +28,13 @@ Generates the two datasets the port is held to, runs the JAX CLI
     `infer_pe_links(probe_mode="lookup")`, whose matrices the JAX tests
     hold equal to the sort join's and which skips the join's per-batch
     argsort of the ~134 M padded table entries; `write_pe_files_sparse`
-    digests.
+    digests;
+  * "metaviral": BASELINE config 5, the 15-strain mixed metaviral sample,
+    `vstrains_tpu.evals.synth.make_multi_component_dataset` (3 components
+    x 5 strains, 3 bubbles, 300 pairs a strain, abundances 20-100, seed
+    3) through the JAX CLI with `--per-component` (one worker) and
+    `--pe-batch-size 512`; the per-component stages write no
+    gfa/split_graph_final.gfa, so the record holds the other outputs.
 The repeat and r300k records also hold the digests of their generated
 inputs (`tools/repeat_workload.workload_digests`).
 
@@ -47,7 +53,7 @@ told apart from a port fault), runs the port CLI and compares the output
 digests.
 
 Usage:  JAX_PLATFORMS=cpu python tools/torch_port_expect.py [--workdir DIR]
-        [--only synth|hiv|r50k|repeat|r300k]
+        [--only synth|hiv|r50k|repeat|r300k|metaviral]
 """
 
 from __future__ import annotations
@@ -84,6 +90,10 @@ REPEAT_BATCH = 16384
 R300K_KW = dict(n_nodes=300_000, node_len=200, n_pairs=1_048_576, seed=0)
 R300K_CHECKED_PAIRS = 65_536
 R300K_BATCH = 16384
+METAVIRAL_KW = dict(n_components=3, num_strains=5, num_bubbles=3,
+                    pairs_per_strain=300,
+                    abundances=[20.0, 40.0, 60.0, 80.0, 100.0], seed=3)
+METAVIRAL_BATCH = 512
 
 
 def sha256_file(path: str) -> str:
@@ -139,8 +149,9 @@ def generate(mod: str, fn: str, data_dir: str, kwargs: dict) -> dict:
     return json.loads(r.stdout.strip().splitlines()[-1])
 
 
-def _record(name, gen_call, data_dir, out_dir, batch, haps, extra):
-    argv = cli_args(data_dir, out_dir, batch)
+def _record(name, gen_call, data_dir, out_dir, batch, haps, extra,
+            flags=(), outputs=OUTPUT_FILES):
+    argv = cli_args(data_dir, out_dir, batch) + list(flags)
     env = _env()
     t0 = time.time()
     r = subprocess.run([sys.executable, "-m", "vstrains_tpu.cli", *argv],
@@ -154,7 +165,7 @@ def _record(name, gen_call, data_dir, out_dir, batch, haps, extra):
         "inputs": {f: sha256_file(os.path.join(data_dir, f))
                    for f in INPUT_FILES},
         "outputs": {f: sha256_file(os.path.join(out_dir, f))
-                    for f in OUTPUT_FILES},
+                    for f in outputs},
         "cli": [a.replace(data_dir, "{data}").replace(out_dir, "{out}")
                 for a in argv],
         "haplotypes_sha256": haplotypes_digest(haps),
@@ -170,6 +181,22 @@ def record_synth(workdir: str) -> dict:
                              "kwargs": SYNTH_KW},
                    data_dir, os.path.join(workdir, "synth_out"),
                    SYNTH_BATCH, ds["haplotypes"], None)
+
+
+def record_metaviral(workdir: str) -> dict:
+    data_dir = os.path.join(workdir, "metaviral_data")
+    ds = generate("synth", "make_multi_component_dataset", data_dir,
+                  METAVIRAL_KW)
+    rec = _record("metaviral",
+                  {"module": "evals.synth.make_multi_component_dataset",
+                   "kwargs": METAVIRAL_KW},
+                  data_dir, os.path.join(workdir, "metaviral_out"),
+                  METAVIRAL_BATCH, ds["haplotypes"], None,
+                  flags=("--per-component",),
+                  outputs=[f for f in OUTPUT_FILES
+                           if f != "gfa/split_graph_final.gfa"])
+    rec["strains"] = len(ds["haplotypes"])
+    return rec
 
 
 def nga50_of(out_dir: str, truth_path: str) -> dict:
@@ -324,7 +351,8 @@ def main(argv=None) -> int:
                     help="where datasets and outputs go [default: a "
                          "fresh temporary directory]")
     ap.add_argument("--only", choices=["synth", "hiv", "r50k", "repeat",
-                                       "r300k"], default=None)
+                                       "r300k", "metaviral"],
+                    default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
     workdir = args.workdir or tempfile.mkdtemp(prefix="torch_port_expect_")
@@ -343,10 +371,12 @@ def main(argv=None) -> int:
         rec["repeat"] = record_repeat(workdir)
     if args.only in (None, "r300k"):
         rec["r300k"] = record_r300k(workdir)
+    if args.only in (None, "metaviral"):
+        rec["metaviral"] = record_metaviral(workdir)
     rec["compared_outputs"] = list(OUTPUT_FILES)
-    rec["recorded_with"] = ("vstrains_tpu on the CPU: the CLI for synth "
-                           "and hiv, infer_pe_links for r50k, repeat and "
-                           "r300k")
+    rec["recorded_with"] = ("vstrains_tpu on the CPU: the CLI for synth, "
+                           "hiv and metaviral, infer_pe_links for r50k, "
+                           "repeat and r300k")
     with open(OUT_JSON, "w") as fh:
         json.dump(rec, fh, indent=1, sort_keys=True)
         fh.write("\n")

@@ -75,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
                         action="store_true", default=False,
                         help="disentangle/extend weakly-connected graph "
                              "components independently (metaSPAdes "
-                             "multi-component graphs; not yet ported)")
+                             "multi-component graphs)")
     parser.add_argument("--component-workers", dest="component_workers",
                         default=1, type=int,
                         help="worker processes for per-component "

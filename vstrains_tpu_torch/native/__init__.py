@@ -24,11 +24,13 @@ def _build() -> bool:
             and os.path.getmtime(_SO_PATH) >= os.path.getmtime(src)):
         return True
     for flags in (["-O3", "-fopenmp"], ["-O3"]):
-        cmd = ["g++", *flags, "-shared", "-fPIC", "-o", _SO_PATH, src,
+        tmp = f"{_SO_PATH}.tmp{os.getpid()}"  # then moved into place
+        cmd = ["g++", *flags, "-shared", "-fPIC", "-o", tmp, src,
                "-lz"]
         try:
             subprocess.run(cmd, check=True, capture_output=True,
                            timeout=120)
+            os.replace(tmp, _SO_PATH)
             return True
         except Exception as e:  # try next flag set
             _LOG.debug("native build failed (%s): %s", flags, e)
@@ -89,10 +91,12 @@ def _build_table_lib() -> bool:
     if (os.path.exists(_TBL_SO_PATH)
             and os.path.getmtime(_TBL_SO_PATH) >= os.path.getmtime(src)):
         return True
+    tmp = f"{_TBL_SO_PATH}.tmp{os.getpid()}"  # then moved into place
     cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-           "-o", _TBL_SO_PATH, src]
+           "-o", tmp, src]
     try:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _TBL_SO_PATH)
         return True
     except Exception as e:
         _LOG.debug("native table lib build failed: %s", e)
@@ -178,8 +182,8 @@ def build_table_entries_native(seqs, split_len: int):
         cap, ctypes.byref(max_dup))
     if m < 0:
         return None
-    return (h1[:m], h2[:m], node[:m], offset[:m],
-            int(max_dup.value) if m else 1)
+    return (h1[:m].copy(), h2[:m].copy(), node[:m].copy(),
+            offset[:m].copy(), int(max_dup.value) if m else 1)
 
 
 def load_read_pairs_native(fwd_path: str, rve_path: str, split_len: int,

@@ -151,34 +151,54 @@ def _bucket_index(table: KmerTable):
 
 
 def build_kmer_table(seqs: Sequence[str], split_len: int,
-                     pad_to_bucket: bool = True) -> KmerTable:
+                     pad_to_bucket: bool = True,
+                     long_hash: Optional[tuple] = None) -> KmerTable:
     """Build the sorted dual-hash table of all valid (k+1)-mers (both
     strands) of every node sequence.
 
     With pad_to_bucket, entry arrays pad to a power-of-two bucket with
-    never-matching sentinels (h1 = INT32_MAX biased, h2 = -1)."""
+    never-matching sentinels (h1 = INT32_MAX biased, h2 = -1).
+
+    `long_hash` = (min_len, hash_fn): node sequences of at least min_len
+    codes are hashed by hash_fn(codes) -> (h1, h2, valid) over all their
+    windows (uint32, uint32, bool: core/seq.window_hashes_np's contract;
+    parallel/mesh.build_table_auto passes the sequence-parallel step),
+    the others by the host build; the table is the host build's, bit for
+    bit."""
     h1s: List[np.ndarray] = []
     h2s: List[np.ndarray] = []
     nodes: List[np.ndarray] = []
     offsets: List[np.ndarray] = []
     seq_lens = np.array([len(s) for s in seqs], dtype=np.int32)
 
-    # C++ fast path (hash both strands + sort): bit-identical to the
-    # numpy path below; the numpy path remains for the no-toolchain
-    # fallback and as the oracle.
+    # Long nodes (with long_hash) hash on their own through hash_fn.
+    long_min = long_hash[0] if long_hash is not None else None
+    host_seqs = (seqs if long_min is None else
+                 ["" if len(s) >= long_min else s for s in seqs])
+    # C++ fast path (hash both strands + sort) for the other nodes:
+    # bit-identical to the numpy path below; the numpy path remains for
+    # the no-toolchain fallback and as the oracle. Its sorted rows join
+    # the long nodes' in the sort below.
+    host_done = False
     if os.environ.get("VSTRAINS_NATIVE_TABLE", "1") != "0":
         from vstrains_tpu_torch import native as _native
-        nat = _native.build_table_entries_native(seqs, split_len)
+        nat = _native.build_table_entries_native(host_seqs, split_len)
         if nat is not None:
             n_h1, n_h2, n_node, n_off, n_max_dup = nat
-            return _finish_kmer_table(n_h1, n_h2, n_node, n_off,
-                                      n_max_dup, len(seqs), split_len,
-                                      seq_lens, pad_to_bucket)
+            if long_hash is None:
+                return _finish_kmer_table(n_h1, n_h2, n_node, n_off,
+                                          n_max_dup, len(seqs), split_len,
+                                          seq_lens, pad_to_bucket)
+            h1s.append(n_h1)
+            h2s.append(n_h2)
+            nodes.append(n_node)
+            offsets.append(n_off)
+            host_done = True
 
-    # every node batches into ONE sentinel-separated concatenation per
-    # strand. A window crossing a node boundary necessarily contains the
-    # never-valid sentinel code, so boundary windows drop out through the
-    # same validity mask as N bases.
+    # Every other node batches into ONE sentinel-separated concatenation
+    # per strand. A window crossing a node boundary necessarily contains
+    # the never-valid sentinel code, so boundary windows drop out through
+    # the same validity mask as N bases.
     _CHUNK_CODES = 32 * 1024 * 1024  # bound the hashing temporaries
     parts: List[str] = []
     keep: List[int] = []
@@ -224,6 +244,24 @@ def build_kmer_table(seqs: Sequence[str], split_len: int,
     for i, seq in enumerate(seqs):
         n = len(seq)
         if n < split_len:
+            continue
+        if long_min is not None and n >= long_min:
+            codes = encode_seq(seq)
+            f1, f2, fv = long_hash[1](codes)
+            idx = np.nonzero(fv)[0]
+            h1s.append(f1[idx])
+            h2s.append(f2[idx])
+            nodes.append(np.full(idx.shape, i, dtype=np.int32))
+            offsets.append(idx.astype(np.int32))
+            # rc window j <-> forward offset n-L-j
+            r1, r2, rv = long_hash[1](revcomp_codes(codes))
+            jdx = np.nonzero(rv)[0]
+            h1s.append(r1[jdx])
+            h2s.append(r2[jdx])
+            nodes.append(np.full(jdx.shape, i, dtype=np.int32))
+            offsets.append((n - split_len - jdx).astype(np.int32))
+            continue
+        if host_done:
             continue
         parts.append(seq if isinstance(seq, str) else seq.decode("ascii"))
         keep.append(i)
@@ -514,35 +552,46 @@ def _classic_lo(q1, tab: _DeviceTable) -> torch.Tensor:
     return _join_lo(q1, tab.h1)
 
 
-def _batch_core(q1, h2, valid, lens, tab: _DeviceTable, acc_nm, acc_sm):
-    """Probe + stats + saturation + pair counts of one stacked end-batch,
-    added into the int64 accumulators in place: the packed probe's slots
-    through stats_accum, or the classic probe's walk fused with the stats
-    (dup_stats)."""
+def _batch_stats(q1, h2, valid, tab: _DeviceTable):
+    """Probe + per-(read, node) stats of one stacked end-batch, (cnt,
+    kmin) int32 [2B, N] (kmin INT32_MAX where cnt is 0): the packed
+    probe's slots through stats_accum, or the classic probe's walk fused
+    with the stats (dup_stats). Against a table shard these are the
+    shard's partials, which merge across shards by (sum, min)."""
     if tab.probe == "sortfill":
         node_t = _sortfill_probe(q1, h2, valid, tab.h1, tab.pays,
                                  tab.node_bits, tab.num_nodes)
-        cnt, kmin = ck.stats_accum(node_t, tab.depth, tab.num_nodes)
-    else:
-        cnt, kmin = ck.dup_stats(q1, h2, valid, _classic_lo(q1, tab),
-                                 tab.rec, tab.depth, tab.num_nodes)
+        return ck.stats_accum(node_t, tab.depth, tab.num_nodes)
+    return ck.dup_stats(q1, h2, valid, _classic_lo(q1, tab), tab.rec,
+                        tab.depth, tab.num_nodes)
+
+
+def _batch_pairs(cnt, kmin, lens, tab: _DeviceTable, acc_nm,
+                 acc_sm) -> None:
+    """Saturation + pair counts of one end-batch's stats, added into the
+    int64 accumulators in place."""
     sat = _saturate(cnt, kmin, lens, tab.seq_lens, tab.split_len)
     B = sat.shape[0] // 2
     ck.pair_counts(sat[:B], sat[B:], acc_nm, acc_sm)
 
 
-def _pe_batch_wire(wire: torch.Tensor, T: int, tab: _DeviceTable, acc_nm,
-                   acc_sm) -> None:
-    """One batch in the compact wire format (uint8 [B, W])."""
-    q1, h2, valid = ck.window_hashes_wire(wire, T, tab.split_len)
-    _batch_core(q1, h2, valid, ck.wire_lens(wire), tab, acc_nm, acc_sm)
+def _batch_core(q1, h2, valid, lens, tab: _DeviceTable, acc_nm, acc_sm):
+    """Probe + stats + saturation + pair counts of one stacked end-batch,
+    added into the int64 accumulators in place."""
+    cnt, kmin = _batch_stats(q1, h2, valid, tab)
+    _batch_pairs(cnt, kmin, lens, tab, acc_nm, acc_sm)
 
 
-def _pe_batch_bytes(codes: torch.Tensor, lens: torch.Tensor,
-                    tab: _DeviceTable, acc_nm, acc_sm) -> None:
-    """One batch of stacked byte codes (uint8 [2B, T], int32 [2B])."""
-    q1, h2, valid = ck.window_hashes_bytes(codes, lens, tab.split_len)
-    _batch_core(q1, h2, valid, lens, tab, acc_nm, acc_sm)
+def _hash_batch(kind: str, payload, T: int, split_len: int, dev):
+    """Window hashes of one batch that _wire_batches yielded, on `dev`:
+    (q1, h2, valid, lens) of its stacked (2B, K) end-batch."""
+    if kind == "wire":
+        wire = torch.from_numpy(payload).to(dev)
+        return (*ck.window_hashes_wire(wire, T, split_len),
+                ck.wire_lens(wire))
+    codes, lens = (torch.from_numpy(x).to(dev)
+                   for x in _stack_ends_np(*payload))
+    return (*ck.window_hashes_bytes(codes, lens, split_len), lens)
 
 
 # --------------------------------------------------------------------------
@@ -703,44 +752,92 @@ def _sparse_sat_tail(node_key, kidx_v, lens, seq_lens, split_len: int,
     return out, cand_ovf | ovf2, counts
 
 
+def _slot_planes(q1, h2, valid, tab: _DeviceTable):
+    """The sparse tail's per-slot (node_key, kidx_v) planes, int32 [2B,
+    K * depth] (INT32_MAX for a miss): the classic probe's straight from
+    dup_scan (the JAX package's _sparse_expand_matches), the packed
+    probe's built from its slots."""
+    N = tab.num_nodes
+    if tab.probe != "sortfill":
+        return ck.dup_scan(q1, h2, valid, _classic_lo(q1, tab), tab.rec,
+                           tab.depth)
+    node_t = _sortfill_probe(q1, h2, valid, tab.h1, tab.pays,
+                             tab.node_bits, N)
+    B2, R = node_t.shape
+    matched = node_t < N
+    node_key = torch.where(matched, node_t, _I32_MAX)
+    kidx = (torch.arange(R, dtype=torch.int32, device=node_t.device)
+            // tab.depth).expand(B2, R)
+    return node_key, torch.where(matched, kidx, _I32_MAX)
+
+
 def _sparse_core(q1, h2, valid, lens, tab: _DeviceTable, cap: int,
                  cap_c: int):
     """Probe + sparse tail of one stacked end-batch: (out [2B, cap]
-    saturated node ids ascending, -1 padded; overflow; counts). The tail
-    takes per-slot (node, k-index) planes: the classic probe's straight
-    from dup_scan (the JAX package's _sparse_expand_matches), the packed
-    probe's built from its slots."""
-    N = tab.num_nodes
-    depth = tab.depth
-    if tab.probe == "sortfill":
-        node_t = _sortfill_probe(q1, h2, valid, tab.h1, tab.pays,
-                                 tab.node_bits, N)
-        B2, R = node_t.shape
-        matched = node_t < N
-        node_key = torch.where(matched, node_t, _I32_MAX)
-        kidx = (torch.arange(R, dtype=torch.int32, device=node_t.device)
-                // depth).expand(B2, R)
-        kidx_v = torch.where(matched, kidx, _I32_MAX)
-    else:
-        node_key, kidx_v = ck.dup_scan(q1, h2, valid, _classic_lo(q1, tab),
-                                       tab.rec, depth)
+    saturated node ids ascending, -1 padded; overflow; counts)."""
+    node_key, kidx_v = _slot_planes(q1, h2, valid, tab)
     return _sparse_sat_tail(node_key, kidx_v, lens, tab.seq_lens,
                             tab.split_len, cap, kmax=q1.shape[1],
                             cap_c=cap_c)
 
 
-def _stats_sparse_wire(wire: torch.Tensor, T: int, tab: _DeviceTable,
-                      cap: int, cap_c: int):
-    """The sparse per-batch pipeline fed by the compact wire format."""
-    q1, h2, valid = ck.window_hashes_wire(wire, T, tab.split_len)
-    return _sparse_core(q1, h2, valid, ck.wire_lens(wire), tab, cap, cap_c)
+def _sparse_run_stats_compact(node_key, kidx_v, num_nodes: int,
+                              kmax: Optional[int], cap_c: int):
+    """Per-shard candidate lists for the table-parallel sparse engine:
+    every distinct matched node of each read with its local (count,
+    min-k) partial, compacted to (B2, cap_c) planes (-1 / 0 / INT32_MAX
+    padded, node-ascending), and the candidate-overflow flag. Partials
+    from different table shards merge exactly in _sparse_merge_sat_tail
+    (integer sum and min)."""
+    node_s, cnt, kmin, is_end = _row_run_stats(node_key, kidx_v,
+                                               num_nodes, kmax)
+    valid, node_c, cnt_c, kmin_c, overflow = _sort_compact_runs(
+        node_s, cnt, kmin, is_end, min(cap_c, node_s.shape[1]))
+    pad = cap_c - node_c.shape[1]
+    planes = (torch.where(valid, node_c, -1), torch.where(valid, cnt_c, 0),
+              torch.where(valid, kmin_c, _I32_MAX))
+    if pad > 0:  # cap_c exceeded the slot width; pad the planes
+        planes = tuple(torch.nn.functional.pad(x, (0, pad), value=v)
+                       for x, v in zip(planes, (-1, 0, _I32_MAX)))
+    return (*planes, overflow)
 
 
-def _stats_sparse_bytes(codes: torch.Tensor, lens: torch.Tensor,
-                        tab: _DeviceTable, cap: int, cap_c: int):
-    """The sparse per-batch pipeline fed by stacked byte codes."""
-    q1, h2, valid = ck.window_hashes_bytes(codes, lens, tab.split_len)
-    return _sparse_core(q1, h2, valid, lens, tab, cap, cap_c)
+def _sparse_merge_sat_tail(nodes, cnts, kmins, lens, seq_lens,
+                           split_len: int, cap: int):
+    """Merge gathered per-shard candidate lists into the saturated-node
+    lists: a row sort by node id (its packed (node, column) key through
+    sort_rows, then a gather of the partial counts and min-k; order
+    within a node is free, the merge being (sum, min)), segmented
+    (sum, min) over each node's partials, then the saturation test and
+    compaction. Padding entries (node -1 -> INT32_MAX, count 0) sort last
+    and are excluded by the run-end mask. Returns (out, overflow,
+    counts), as _sparse_sat_tail."""
+    B2, C = nodes.shape
+    dev = nodes.device
+    node_key = torch.where(nodes >= 0, nodes, _I32_MAX).contiguous()
+    col = torch.arange(C, dtype=torch.int32, device=dev).expand(
+        B2, C).contiguous()
+    node_s, col_s = ck.sort_rows(node_key, col)
+    idx = col_s.to(torch.int64)
+    cnt_s = cnts.gather(1, idx)
+    kmin_s = kmins.gather(1, idx)
+    prev = torch.cat([torch.full((B2, 1), -1, dtype=torch.int32, device=dev),
+                      node_s[:, :-1]], 1)
+    startf = node_s != prev
+    pos = torch.arange(C, dtype=torch.int32, device=dev).expand(B2, C)
+    startpos, kmin_tot = _segmented_scans(
+        startf, torch.where(startf, pos, -1), kmin_s)
+    # a run's sum: the running total at its end less the total before
+    # its start
+    cs = torch.cumsum(cnt_s, dim=1, dtype=torch.int32)
+    before = (cs - cnt_s).gather(1, startpos.to(torch.int64))
+    nxt = torch.cat([node_s[:, 1:], torch.full((B2, 1), -1,
+                                               dtype=torch.int32,
+                                               device=dev)], 1)
+    is_end = (node_s != nxt) & (node_s != _I32_MAX)
+    ok = is_end & _sat_ok(node_s, cs - before, kmin_tot, lens, seq_lens,
+                          split_len)
+    return _compact_rows(ok, node_s, cap)
 
 
 # --------------------------------------------------------------------------
@@ -1104,14 +1201,9 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
     for p in parts:
         Tp = max(p.fwd_codes.shape[1], p.rve_codes.shape[1])
         for kind, payload in _wire_batches(p, batch_size):
-            if kind == "wire":
-                _pe_batch_wire(torch.from_numpy(payload).to(dev), Tp, tab,
-                               acc_nm, acc_sm)
-            else:
-                codes, lens = _stack_ends_np(*payload)
-                _pe_batch_bytes(torch.from_numpy(codes).to(dev),
-                                torch.from_numpy(lens).to(dev), tab,
-                                acc_nm, acc_sm)
+            q1, h2, valid, lens = _hash_batch(kind, payload, Tp, split_len,
+                                              dev)
+            _batch_core(q1, h2, valid, lens, tab, acc_nm, acc_sm)
 
     return PEResult(list(ids), acc_nm.cpu().numpy(), acc_sm.cpu().numpy(),
                     reads.n_reads, reads.short_reads, reads.used_reads)
@@ -1123,34 +1215,59 @@ def _infer_pe_links_sparse(ids, table: KmerTable, tab: _DeviceTable,
                            cap_c: int = 32) -> PESparseResult:
     """Large-N engine: the same probes, sparse per-batch stats and host
     COO accumulation; the footprint does not grow with N. The classic
-    probe takes the byte feed, as in the JAX package.
-
-    Batch i's result is copied to the host behind its own kernels and
-    read after batch i+1 is queued, so the device always has the next
-    batch while the host expands COO keys, and no batch syncs the stream
-    on its own. A cap overflow retries the whole run at 4x the caps with
-    the same table on the device."""
+    probe takes the byte feed, as in the JAX package. A cap overflow
+    retries the whole run at 4x the caps with the same table on the
+    device."""
     N = tab.num_nodes
-    depth = table.max_dup
     dev = tab.h1.device
-    # clamp by the sparse path's own footprint: ~8 live (2B, K*depth)
-    # int32 planes through sort + scans
     T = max(reads.fwd_codes.shape[1], reads.rve_codes.shape[1])
-    K = T - tab.split_len + 1
+    batch_size = _sparse_batch_clamp(batch_size, T, tab.split_len,
+                                     table.max_dup, logger)
+
+    def one_pass(cap, cap_c):
+        logger.info("sparse PE stats path: N=%d, cap=%d, depth=%d, "
+                    "batch=%d", N, cap, table.max_dup, batch_size)
+
+        def core(kind, payload):
+            q1, h2, valid, lens = _hash_batch(kind, payload, T,
+                                              tab.split_len, dev)
+            out, ovf, _ = _sparse_core(q1, h2, valid, lens, tab, cap,
+                                       cap_c)
+            return out, ovf
+
+        batches = _wire_batches(reads, batch_size,
+                                force_bytes=tab.probe != "sortfill")
+        return _sparse_run(batches, core, N, dev)
+
+    pk, pc, sk, sc = _sparse_retry(one_pass, cap, cap_c, logger)
+    return PESparseResult(list(ids), pk, pc, sk, sc, reads.n_reads,
+                          reads.short_reads, reads.used_reads)
+
+
+def _sparse_batch_clamp(batch_size: int, T: int, split_len: int,
+                        depth: int, logger: logging.Logger,
+                        n_data: int = 1) -> int:
+    """The sparse engine's batch, clamped by its own footprint (~8 live
+    (2B, K * depth) int32 planes through sort + scans) on each of the
+    n_data ranks that split a batch."""
+    K = T - split_len + 1
     row_bytes = max(K * max(depth, 1) * 4 * 8, 1)
     budget = max(512, (1_500_000_000 // row_bytes) // 2)
-    if batch_size > budget:
-        clamped = max(512, 1 << (budget.bit_length() - 1))
-        logger.info("sparse pe batch clamped %d -> %d (K=%d, depth=%d)",
-                    batch_size, clamped, K, depth)
-        batch_size = clamped
+    if batch_size // n_data <= budget:
+        return batch_size
+    clamped = max(512, 1 << (budget.bit_length() - 1)) * n_data
+    logger.info("sparse pe batch clamped %d -> %d (K=%d, depth=%d)",
+                batch_size, clamped, K, depth)
+    return clamped
 
+
+def _sparse_retry(one_pass, cap: int, cap_c: int, logger: logging.Logger):
+    """one_pass(cap, cap_c) -> the merged COO, or None on a cap overflow;
+    an overflow retries the pass at 4x the caps, up to 256."""
     while True:
-        logger.info("sparse PE stats path: N=%d, cap=%d, depth=%d, "
-                    "batch=%d", N, cap, depth, batch_size)
-        coo = _sparse_run(tab, reads, T, batch_size, cap, cap_c, dev)
+        coo = one_pass(cap, cap_c)
         if coo is not None:
-            break
+            return coo
         if cap >= 256:
             raise RuntimeError(
                 "a read saturated more than 256 nodes; graph too "
@@ -1158,28 +1275,24 @@ def _infer_pe_links_sparse(ids, table: KmerTable, tab: _DeviceTable,
         logger.info("sparse caps %d/%d overflowed; retrying with %d/%d",
                     cap, cap_c, cap * 4, cap_c * 4)
         cap, cap_c = cap * 4, cap_c * 4
-    pk, pc, sk, sc = coo
-    return PESparseResult(list(ids), pk, pc, sk, sc, reads.n_reads,
-                          reads.short_reads, reads.used_reads)
 
 
-def _sparse_run(tab: _DeviceTable, reads: ReadPairBatch, T: int,
-                batch_size: int, cap: int, cap_c: int, dev):
-    """One pass over all batches at the given caps: the merged COO
-    (pair keys, counts, short keys, counts), or None on a cap overflow."""
-    N = tab.num_nodes
+def _sparse_run(batches, core, num_nodes: int, dev, expand: bool = True):
+    """One pass of the sparse engine: core(kind, payload) -> (out [2B, cap]
+    saturated node ids, overflow flag) queued on `dev` for each of
+    `batches` ((kind, payload) as _wire_batches yields them). Returns the
+    merged COO (pair keys, counts, short keys, counts; empty unless
+    `expand`), or None on a cap overflow, which ends the pass.
+
+    Batch i's result is copied to the host behind its own kernels and
+    read after batch i+1 is queued, so the device always has the next
+    batch while the host expands COO keys, and no batch syncs the stream
+    on its own."""
     pe_k, pe_c, st_k, st_c = [], [], [], []
     on_cuda = dev.type == "cuda"
 
     def queue(kind, payload):
-        if kind == "wire":
-            out, ovf, _ = _stats_sparse_wire(
-                torch.from_numpy(payload).to(dev), T, tab, cap, cap_c)
-        else:
-            codes, lens = _stack_ends_np(*payload)
-            out, ovf, _ = _stats_sparse_bytes(
-                torch.from_numpy(codes).to(dev),
-                torch.from_numpy(lens).to(dev), tab, cap, cap_c)
+        out, ovf = core(kind, payload)
         if not on_cuda:
             return out, ovf, None
         out_h = torch.empty(out.shape, dtype=out.dtype, device="cpu",
@@ -1199,10 +1312,12 @@ def _sparse_run(tab: _DeviceTable, reads: ReadPairBatch, T: int,
                 done.synchronize()
         if bool(ovf_h):
             return False
+        if not expand:
+            return True
         with record_function("sparse.coo"):
             sn = out_h.numpy()
             b = sn.shape[0] // 2
-            pe, st = _sparse_pairs_np(sn[:b], sn[b:], N)
+            pe, st = _sparse_pairs_np(sn[:b], sn[b:], num_nodes)
             for arr, kl, cl in ((pe, pe_k, pe_c), (st, st_k, st_c)):
                 u, c = np.unique(arr, return_counts=True)
                 kl.append(u)
@@ -1214,8 +1329,6 @@ def _sparse_run(tab: _DeviceTable, reads: ReadPairBatch, T: int,
     # launches of a batch; sparse.wait = the host blocked on the device;
     # sparse.coo = host COO expansion of a pulled batch
     pending = None
-    batches = _wire_batches(reads, batch_size,
-                            force_bytes=tab.probe != "sortfill")
     while True:
         with record_function("sparse.queue"):
             nxt = next(batches, None)

@@ -20,6 +20,10 @@ Stage structure parity with the reference (VStrains_SPAdes.py:25-280):
 the run lives: the PE engine's batches and kernels, and the graph passes'
 device path (passed explicitly here; the graph reloads inside the
 algorithms read the run's device, set here with `device.run_on`).
+`args.per_component` runs stages 6-8 on each weakly connected component
+apart (parallel/components.py: in `args.component_workers` spawned
+processes, or round-robin over the ranks of an initialized
+torch.distributed world), each on the run's device.
 `args.resume` restarts from the most advanced completed checkpoint.
 Per-stage wall times land in <out>/timings.json (utils/tracing.py).
 """
@@ -59,6 +63,8 @@ from vstrains_tpu_torch.ops.pe_infer import (build_kmer_table,
                                              pe_info_sparse_from_result,
                                              write_pe_files,
                                              write_pe_files_sparse)
+from vstrains_tpu_torch.parallel.collectives import world_size
+from vstrains_tpu_torch.parallel.mesh import build_table_auto
 from vstrains_tpu_torch.utils import checkpoint as ckpt
 from vstrains_tpu_torch.utils.tracing import StageTimer
 
@@ -74,11 +80,9 @@ class PipelineError(Exception):
 def run(args, logger: logging.Logger = None) -> int:
     """args needs: gfa_file, path_file, fwd, rve, output_dir, min_cov,
     min_len, dev (mirrors the reference CLI namespace); optional: device,
-    resume, pe_batch_size, pe_files, profile_dir."""
+    resume, pe_batch_size, pe_files, profile_dir, per_component,
+    component_workers."""
     logger = logger or _LOG
-    if getattr(args, "per_component", False):
-        raise PipelineError("--per-component is not yet ported to the "
-                            "PyTorch pipeline")
     try:
         device = resolve_device(getattr(args, "device", "cuda"))
     except RuntimeError as exc:
@@ -207,25 +211,33 @@ def _run(args, logger: logging.Logger, device: torch.device) -> int:
                 timer.device_trace("pe_inference"):
             ids = list(view1.nodes.keys())
             seqs = [view1.nodes[i].seq for i in ids]
-            # the k-mer table build overlaps FASTQ loading on a
-            # background thread
+            # one process: the host table build overlaps FASTQ loading on
+            # a background thread. In a world of several ranks the build
+            # (its long nodes hashed sequence-parallel: collectives and
+            # kernels on every rank) runs here, so a failure raises.
             table_box = {}
+            table_thread = None
+            if world_size() > 1:
+                table_box["table"] = build_table_auto(seqs, ksize + 1,
+                                                      device, logger)
+            else:
+                def _build_table():
+                    try:
+                        table_box["table"] = build_kmer_table(seqs,
+                                                              ksize + 1)
+                    except Exception as exc:  # main thread rebuilds
+                        logger.warning("background table build failed: "
+                                       "%s", exc)
 
-            def _build_table():
-                try:
-                    table_box["table"] = build_kmer_table(seqs, ksize + 1)
-                except Exception as exc:  # main thread rebuilds
-                    logger.warning("background table build failed: %s",
-                                   exc)
-
-            table_thread = threading.Thread(target=_build_table,
-                                            daemon=True)
-            table_thread.start()
+                table_thread = threading.Thread(target=_build_table,
+                                                daemon=True)
+                table_thread.start()
             reads = load_read_pairs(args.fwd, args.rve, ksize + 1,
                                     pad_to_multiple=32)
             logger.info("reads: used=%d, with_N=%d, short=%d",
                         reads.used_reads, reads.n_reads, reads.short_reads)
-            table_thread.join()
+            if table_thread is not None:
+                table_thread.join()
             t_engine = time.time()
             pe_result = infer_pe_links(
                 ids, seqs, reads, ksize,
@@ -282,8 +294,38 @@ def _run(args, logger: logging.Logger, device: torch.device) -> int:
             ckpt.save_stage(temp_dir, "cleaned", {
                 "contig_dict": contig_dict, "pe_info": pe_info})
 
+    # ---- per-component fast path (metaSPAdes multi-component graphs) ----
+    mono = True
+    if getattr(args, "per_component", False) and not done("extended"):
+        from vstrains_tpu_torch.parallel.components import (
+            run_components, weakly_connected_components)
+        n_comp = len(weakly_connected_components(view2))
+        if n_comp > 1:
+            mono = False
+            logger.info("[stage] per-component disentanglement + "
+                        "extension (%d components)", n_comp)
+            with timer.stage("per_component_extraction", logger):
+                delta = 0.05 * float(numpy.median(
+                    [v.dp for v in view2.graph.vertices()]))
+                if world_size() > 1:
+                    from vstrains_tpu_torch.parallel.components import (
+                        run_components_multihost)
+                    strain_dict = run_components_multihost(
+                        view2, contig_dict, pe_info, dcpy_pe_info,
+                        delta, str(device), logger=logger)
+                else:
+                    strain_dict = run_components(
+                        view2, contig_dict, pe_info, dcpy_pe_info, delta,
+                        str(device),
+                        workers=getattr(args, "component_workers", 1) or 1,
+                        logger=logger)
+                ckpt.save_stage(temp_dir, "extended",
+                                {"strain_dict": strain_dict})
+
     # ---- stage 6: disentanglement ----
-    if done("disentangled"):
+    if not mono:
+        pass
+    elif done("disentangled"):
         st = ckpt.load_stage(temp_dir, "disentangled")
         contig_dict = st["contig_dict"]
         pe_info = PEInfo(st["pe_info"])
@@ -324,7 +366,9 @@ def _run(args, logger: logging.Logger, device: torch.device) -> int:
                 "contig_dict": contig_dict, "pe_info": pe_info})
 
     # ---- stage 7+8: link refinement + extension ----
-    if done("extended"):
+    if not mono:
+        pass  # strain_dict already produced per component
+    elif done("extended"):
         st = ckpt.load_stage(temp_dir, "extended")
         strain_dict = st["strain_dict"]
     else:
