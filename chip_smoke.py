@@ -19,7 +19,10 @@ without the final result line):
      the CUDA-event time of each after warm-up beside its bound (the
      H100's published memory or int8 rate) and, where one PyTorch call
      computes the same function, that call's time; pair_counts also on
-     all-ones masks; then the same check, untimed, at ragged shapes (for
+     all-ones masks; sort_rows on both sides of its one-block network's
+     limit (4,097 and 10,000 slots in the network, 40,000 in the global
+     branch) and sort_cols (no path calls it) at 2,048 x 2,048 and 3,000 x
+     1,001; then the same check, untimed, at ragged shapes (for
      dup_stats and dup_scan: synthetic padded tables with duplicate runs,
      scans that start at or just before the table's end, queries equal to
      the padding, all-invalid rows, D up to 300, K past a block's
@@ -65,6 +68,13 @@ without the final result line):
      32,768, K = 95, D = 32, N = 1,024) and dup_scan at the sparse run's
      (2B = 8,192), the kernels line's main shapes for both, with
      stats_accum at the slot plane dup_stats replaces;
+  8b. the repeat64 cell (the same generator with 16 groups of 64 nodes:
+     max_dup 64, so the sparse tail's rows of 95 x 64 = 6,080 slots pad
+     to 8,192 and sort in sort_rows' one-block network, which the run must
+     show by its launches' padded widths) through infer_pe_links dense
+     (dup_stats at depth 64) and sparse: 65,536 pairs each against the
+     JAX record "repeat64", then each timed on 262,144 pairs; the path's
+     kernels at its shapes;
   9. the N = 300,000 cell (`bench.synth_workload`, 300,000 nodes of 200
      bp, past the packed probe's 2^18 node ids: the sparse engine and the
      classic join; 1,048,576 pairs, seed 0): host seconds of each set-up
@@ -387,13 +397,21 @@ def ragged_shapes() -> None:
     torch.cuda.empty_cache()
     for R in (1, 37):
         for C in (1, 5, 31, 32, 33, 100, 285, 402, 512, 513, 1025, 2049,
-                  4096, 4097):
+                  4096, 4097, 6080, 8193, 16384, 16385, 70000):
             key, val = sort_operands(rng, R, C)
             max_abs_err(f"sort_rows R={R} C={C}", ck.sort_rows(key, val),
                         ck.sort_rows_plain(key, val))
             max_abs_err(f"sort_rows key-only R={R} C={C}",
                         [ck.sort_rows(key)], [ck.sort_rows_plain(key)])
             n += 2
+    # one to 32 columns a block, ragged last blocks, lengths that are not
+    # a power of two, up to the limit
+    for L, W in ((1, 1), (5, 3), (33, 40), (300, 37), (512, 33), (1000, 17),
+                 (2047, 4099), (5000, 3), (10000, 1), (16384, 3)):
+        x = sort_operands(rng, L, W)[0]
+        max_abs_err(f"sort_cols L={L} W={W}", [ck.sort_cols(x)],
+                    [ck.sort_cols_plain(x)])
+        n += 1
     say(f"ragged shapes: {n} kernel checks bit-equal to plain")
 
 
@@ -412,38 +430,47 @@ def sort_operands(rng, R: int, C: int):
 
 
 def sort_rows_phase(rng) -> list:
-    """sort_rows against its plain version in both of its branches, at
-    the widest row a cap retry reaches on HIV, past the network branch's
-    limit, and key-only on the transpose (the column sort of
-    tools/colsort_proto.py). The sparse tail's own shapes are checked
-    where each sparse path runs (sparse_path_kernels). Returns the
-    comparisons."""
+    """sort_rows against its plain version on both sides of the one-block
+    network's limit (SORT_NET_MAX slots): the widest row a cap retry
+    reaches on HIV, rows of 4,097 and 10,000 slots (8,192 and 16,384
+    padded: 16 and 32 warps a row), and 40,000 slots (the global branch),
+    (key, val) and key-only; then sort_cols against its plain version at
+    2,048 x 2,048 and a ragged 3,000 x 1,001. The sparse tail's own shapes
+    are checked where each sparse path runs (sparse_path_kernels). Returns
+    the comparisons."""
     import numpy as np
     import torch
 
     from vstrains_tpu_torch.ops import cuda_kernels as ck
     out = []
-    for R, C, what, iters in ((8192, 201 * 16, "HIV cap retry, D=16", 10),
-                              (2048, 10000, "past the network branch", 10)):
+    for R, C, what, forms in ((8192, 201 * 16, "HIV cap retry, D=16", 1),
+                              (2048, 4097, "past 4,096 slots", 2),
+                              (2048, 10000, "past 8,192 slots", 2),
+                              (256, 40000, "past the network's limit", 2)):
         key, val = sort_operands(rng, R, C)
         branch = "network" if ck.sort_rows_uses_network(C) else "global"
-        if (branch == "global") != (what == "past the network branch"):
+        if (branch == "network") != (C <= ck.SORT_NET_MAX):
             raise AssertionError(f"sort_rows C={C} took the {branch} branch")
-        shape = f"{what}, {branch} branch, R={R} C={C}"
+        for v in (val, None)[:forms]:
+            form = "(key, val)" if v is not None else "key-only"
+            shape = f"{what}, {branch} branch, {form}, R={R} C={C}"
+            out.append(dict(compare(
+                f"sort_rows ({shape})", lambda v=v: ck.sort_rows(key, v),
+                lambda v=v: ck.sort_rows_plain(key, v), iters=10,
+                bound_=sort_bound(key, v), library=sort_library(key, v)),
+                kernel="sort_rows", shape=shape))
+    x_rng = np.random.RandomState(5)
+    for L, W in ((2048, 2048), (3000, 1001)):
+        x = torch.from_numpy(x_rng.randint(-2**31, 2**31, (L, W))
+                             .astype(np.int32)).cuda()
+        shape = f"L={L} W={W}"
         out.append(dict(compare(
-            f"sort_rows ({shape})", lambda: ck.sort_rows(key, val),
-            lambda: ck.sort_rows_plain(key, val), iters=iters,
-            bound_=sort_bound(key, val), library=sort_library(key, val)),
-            kernel="sort_rows", shape=shape))
-    x = torch.from_numpy(np.random.RandomState(5).randint(
-        -2**31, 2**31, (2048, 2048)).astype(np.int32)).cuda()
-    shape = "key-only on the transpose, L=W=2048, transposes included"
-    out.append(dict(compare(
-        f"sort_rows ({shape})", lambda: ck.sort_rows(x.T.contiguous()).T,
-        lambda: torch.sort(x, dim=0).values, iters=10,
-        bound_=sort_bound(x, None),
-        library=[("torch.sort(x, dim=0)", lambda: torch.sort(x, dim=0))]),
-        kernel="sort_rows", shape=shape))
+            f"sort_cols ({shape})", lambda x=x: ck.sort_cols(x),
+            lambda x=x: ck.sort_cols_plain(x), iters=10,
+            bound_=sort_bound(x, None),
+            library=[("torch.sort(x, dim=0)",
+                      lambda x=x: torch.sort(x, dim=0))]),
+            kernel="sort_cols", shape=shape))
     return out
 
 
@@ -628,7 +655,7 @@ def pair_library(f, r) -> list:
 def count_launches(name: str, run, expect_on, expect_off=()) -> dict:
     """Run one path with every launch count set to 0 just before and
     read just after; fail unless each kernel of the path launched and
-    none of `expect_off` did."""
+    none of `expect_off` did, nor sort_cols (no path calls it)."""
     from vstrains_tpu_torch.ops import cuda_kernels as ck
     ck.reset_launches()
     out = run()
@@ -638,7 +665,8 @@ def count_launches(name: str, run, expect_on, expect_off=()) -> dict:
     if missing:
         raise AssertionError(f"{name}: kernels never launched on this "
                              f"path: {missing}")
-    extra = [k for k in expect_off if launches[k] != 0]
+    extra = [k for k in set(expect_off) | {"sort_cols"}
+             if k not in expect_on and launches[k] != 0]
     if extra:
         raise AssertionError(f"{name}: kernels of another path launched: "
                              f"{extra}")
@@ -1269,6 +1297,105 @@ def repeat_cell(rec: dict) -> tuple:
     return launches["dense"], launches["sparse"], stats, scan, plane
 
 
+def repeat64_cell(rec: dict, rng) -> tuple:
+    """The repeat64 cell (tools/repeat_workload with 16 groups of 64
+    nodes: 1,024 nodes of 400 bp, max_dup 64, the classic join) through
+    infer_pe_links on the card, dense (stats_mode="auto": dup_stats at
+    depth 64) and sparse, whose tail sorts rows of K x 64 = 6,080 slots
+    padded to 8,192 in sort_rows' one-block network: each engine on the
+    first 65,536 pairs against the JAX record "repeat64", then timed on
+    all 262,144; then window_hashes, sort_rows, dup_scan and dup_stats at
+    the runs' shapes. Returns (the dense checked run's launches, the
+    sparse one's, the kernel checks)."""
+    import torch
+
+    from tools.repeat_workload import repeat_workload, workload_digests
+    from vstrains_tpu_torch.core.fastq import ReadPairBatch, _pack
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    from vstrains_tpu_torch.ops import pe_infer as P
+
+    t0 = time.time()
+    refs, fwd, rve, k = repeat_workload(**rec["generator"]["kwargs"])
+    if workload_digests(refs, fwd, rve) != rec["inputs"]:
+        raise AssertionError("repeat64: generated inputs differ from the "
+                             "JAX record's")
+    fc, fl = _pack([x.encode() for x in fwd])
+    rc, rl = _pack([x.encode() for x in rve])
+    n_all, n_chk = len(fl), rec["checked_pairs"]
+    gen_s = time.time() - t0
+    table = P.build_kmer_table(refs, k + 1)
+    N, batch = table.num_nodes, rec["batch_size"]
+    say(f"repeat64 cell: {N} nodes, {n_all} pairs generated in {gen_s:.1f} "
+        f"s; table {table.num_entries} entries, max_dup {table.max_dup}")
+    if table.max_dup != rec["max_dup"] or batch > P.dense_budget_rows(N):
+        raise AssertionError("repeat64: max_dup differs from the record's, "
+                             "or the cell is past the dense budget")
+    ids = [str(i) for i in range(N)]
+    log, messages = _keep_log("chip_smoke.repeat64")
+
+    def engine(n, stats_mode):
+        reads = ReadPairBatch(fc[:n], fl[:n], rc[:n], rl[:n], 0, 0, n)
+        torch.cuda.synchronize()
+        t = time.time()
+        res = P.infer_pe_links(ids, refs, reads, k, batch_size=batch,
+                               stats_mode=stats_mode, table=table,
+                               logger=log, device="cuda")
+        torch.cuda.synchronize()
+        return res, time.time() - t
+
+    launches = {}
+    for name, stats_mode, on, off, kind in (
+            ("dense", "auto", ("window_hashes", "dup_stats", "pair_counts"),
+             ("sort_rows", "stats_accum", "dup_scan"), P.PEResult),
+            ("sparse", "sparse", ("window_hashes", "dup_scan", "sort_rows"),
+             ("stats_accum", "pair_counts", "dup_stats"),
+             P.PESparseResult)):
+        messages.clear()
+        got, (res, sec) = count_launches(
+            f"repeat64 {name} checked run",
+            lambda stats_mode=stats_mode: engine(n_chk, stats_mode), on, off)
+        widths = dict(ck.SORT_ROWS_WIDTHS)
+        if not isinstance(res, kind):
+            raise AssertionError(f"repeat64: the {name} engine did not run")
+        out = os.path.join(WORK, f"repeat64_{name}")
+        os.makedirs(out, exist_ok=True)
+        P.write_pe_files(res, os.path.join(out, "pe_info"),
+                         os.path.join(out, "st_info"))
+        check_digests(f"repeat64 {name}", out, rec["outputs"])
+        extra = ""
+        if name == "sparse":
+            shape = sparse_run_shape(messages)
+            if widths.get(8192, 0) <= 0 or max(widths) > ck.SORT_NET_MAX:
+                raise AssertionError(f"repeat64 sparse: sort_rows launches "
+                                     f"by padded width {widths}: expected "
+                                     "8,192 and none past the network")
+            extra = (f"; sparse path {json.dumps(shape)}, sort_rows "
+                     f"launches by padded width {widths}")
+        say(f"repeat64 {name} checked run: {n_chk} pairs in {sec:.4f} s; "
+            f"files byte-equal to the JAX record{extra}")
+        launches[name] = got
+        torch.cuda.reset_peak_memory_stats()
+        messages.clear()
+        res, sec = engine(n_all, stats_mode)
+        retries = [m for m in messages if "overflowed" in m]
+        say(f"repeat64 {name} timed run: {n_all} pairs in {sec:.4f} s = "
+            f"{n_all / sec:.1f} pairs/s; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; cap "
+            f"retries {len(retries)}")
+    reads_all = ReadPairBatch(fc, fl, rc, rl, 0, 0, n_all)
+    checks = sparse_path_kernels("repeat64", reads_all, k + 1, shape, rng,
+                                 force_bytes=True)
+    D = table.max_dup
+    for kernel, b, label in (("dup_stats", batch, "repeat64 dense"),
+                             ("dup_scan", shape["batch"],
+                              "repeat64 sparse")):
+        win, tab = classic_inputs(table, reads_all, b, k + 1)
+        checks.append(dup_compare(kernel, label, win, tab, D, iters=10))
+        del win, tab
+    torch.cuda.empty_cache()
+    return launches["dense"], launches["sparse"], checks
+
+
 def cell_300k(rec: dict, rng) -> list:
     """The N = 300,000 cell (`bench.synth_workload`, past the packed
     probe's 2^18 node ids): infer_pe_links(stats_mode="auto") routes it to
@@ -1376,7 +1503,7 @@ SP_SPLIT_LEN = 56   # the HIV graph's k = 55, plus one
 SP_TABLE_NODES = (2000, 16)  # nodes of 200-2,000 bp, and of 8-60 kb
 DENSE = ("window_hashes", "stats_accum", "pair_counts")
 ALL = ("window_hashes", "stats_accum", "pair_counts", "sort_rows",
-       "dup_scan", "dup_stats")
+       "dup_scan", "dup_stats", "sort_cols")
 
 
 def save_workload(path: str, refs, k: int, fc, fl, rc, rl) -> None:
@@ -1924,9 +2051,9 @@ def sp_kernel_check(world: int = 2) -> dict:
 
 
 _KERNEL_NAMES = ("pair_counts_kernel", "pack_words", "sort_rows_net",
-                 "sort_tile", "sort_global_stage", "stats_accum_shared",
-                 "stats_accum_global", "window_hashes_kernel",
-                 "dup_scan_kernel")
+                 "sort_chunk", "sort_global_pass", "sort_cols_net",
+                 "stats_accum_shared", "stats_accum_global",
+                 "window_hashes_kernel", "dup_scan_kernel")
 
 
 def kernel_name(mangled: str) -> str:
@@ -1939,6 +2066,22 @@ def kernel_name(mangled: str) -> str:
     if m:
         word = "uint32" if m.group(1) == "j" else "uint64"
         return f"sort_rows_net<{word}, P={m.group(2)}, W={m.group(3)}>"
+    m = re.search(r"sort_rows_net16I([jm])E", mangled)
+    if m:
+        word = "uint32" if m.group(1) == "j" else "uint64"
+        return f"sort_rows_net<{word}, P=16, W=16>"
+    m = re.search(r"sort_chunkI([jm])Li(\d+)E", mangled)
+    if m:
+        word = "uint32" if m.group(1) == "j" else "uint64"
+        return (f"sort_chunk<{word}, "
+                f"{'sort' if m.group(2) == '2' else 'merge'}>")
+    m = re.search(r"sort_global_passI([jm])Li(\d+)E", mangled)
+    if m:
+        word = "uint32" if m.group(1) == "j" else "uint64"
+        return f"sort_global_pass<{word}, S={m.group(2)}>"
+    m = re.search(r"sort_cols_netILi(\d+)ELi(\d+)E", mangled)
+    if m:
+        return f"sort_cols_net<P={m.group(1)}, Wc={m.group(2)}>"
     m = re.search(r"window_hashes_kernelILb([01])E", mangled)
     if m:
         return f"window_hashes_kernel<{('bytes', 'wire')[int(m.group(1))]}>"
@@ -1985,7 +2128,8 @@ def sass_summary(lib_path: str) -> list:
         name = kernel_name(block.split()[0])
         if name.startswith("window_hashes"):
             keys = ("LDS", "STS", "STG", "STG.128", "IMAD", "BAR")
-        elif name.startswith(("pair_counts", "sort_rows_net")):
+        elif name.startswith(("pair_counts", "sort_rows_net", "sort_chunk",
+                              "sort_cols_net")):
             keys = ("HGMMA", "IGMMA", "SHFL", "LDS", "STS", "BAR")
         elif name.startswith("dup_"):
             keys = ("LDG", "STG", "STG.128", "LDS", "STS", "ATOMS", "BAR")
@@ -2119,6 +2263,10 @@ def main() -> int:
     # 8. the repeat cell, dense and sparse; 9. the N = 300,000 cell
     (rep_dense, rep_sparse, kres["dup_stats"], kres["dup_scan"],
      rep_plane) = repeat_cell(expected["repeat"])
+    t0 = time.time()
+    _, _, rep64 = repeat64_cell(expected["repeat64"],
+                                np.random.RandomState(7))
+    say(f"phase 8b (repeat64): {time.time() - t0:.1f} s")
     c300 = cell_300k(expected["r300k"], np.random.RandomState(4))
     # 10. per-component extraction; 11. the sharded engine in an NCCL
     # world of one; 12-14. two ranks on the card over gloo
@@ -2141,12 +2289,15 @@ def main() -> int:
     launches["dup_scan"] = rep_sparse["dup_scan"]
     # each kernel's line: its main-path shape (the HIV dense run's; for
     # sort_rows the N = 50k tail's (key, val) sort; for dup_stats and
-    # dup_scan the repeat cell's dense and sparse runs), its other shapes
-    # under "also"
+    # dup_scan the repeat cell's dense and sparse runs; for sort_cols,
+    # which no path calls, 2,048 x 2,048, launches from the HIV dense
+    # run: 0), its other shapes under "also"
     kres["sort_rows"] = next(c for c in c50 if c["kernel"] == "sort_rows")
-    others = kres["also"] + sparse_checks + [
-        c for c in c50 if c is not kres["sort_rows"]] + hiv_dup + c300 + [
-        rep_plane, sp_check]
+    kres["sort_cols"] = next(c for c in kres["also"]
+                             if c["kernel"] == "sort_cols")
+    others = [c for c in kres["also"] if c is not kres["sort_cols"]] + \
+        sparse_checks + [c for c in c50 if c is not kres["sort_rows"]] + \
+        hiv_dup + c300 + rep64 + [rep_plane, sp_check]
     keys = ("shape", "ms", "plain_ms", "library_ms", "library", "bound_ms",
             "bound_by", "entries_walked", "distinct_entries", "table_bytes")
     kernels = []

@@ -1,4 +1,4 @@
-"""The logic of the port's five redesigned CUDA kernels, which cannot
+"""The logic of the port's six redesigned CUDA kernels, which cannot
 run on the CPU, emulated in numpy step for step and held to the plain
 versions and the JAX package's Pallas kernels (interpret mode):
 
@@ -10,12 +10,18 @@ versions and the JAX package's Pallas kernels (interpret mode):
     (f_I^T r_J, r_I^T f_J written transposed, f_I^T f_J + r_I^T r_J with
     the diagonal tile masked to i <= j) on the operand bytes it stages:
     the first launch's bit-packed words, expanded per nibble.
-  * sort_rows (csrc/sort_rows.cu): the register-resident bitonic network,
-    with each stage as a permutation of (warp, lane, register) slots:
-    compare-exchange between registers for strides below P, a lane
-    shuffle for strides below one warp's span, shared memory above it,
-    coalesced loads in any order and the sorted row out through shared
-    memory.
+  * sort_rows (csrc/sort_rows.cu on csrc/sort_net.cuh): the
+    register-resident bitonic network, with each stage as a permutation of
+    (warp, lane, register) slots: compare-exchange between registers for
+    strides below P, a lane shuffle for strides below one warp's span,
+    and above it the row's shared copy read back in the cube layout (up
+    to four long strides in registers, a longer one pairwise), coalesced
+    loads in any order and the sorted row out through shared memory; and
+    past one block, the global branch: chunks sorted by the same network,
+    global passes of up to four strides, in-chunk merges.
+  * sort_cols (csrc/sort_cols.cu): the tile plan (NC columns a block, the
+    tile read and stored row by row through a column-major padded tile in
+    shared memory) around the same network, one column a group of warps.
   * window_hashes (csrc/window_hashes.cu): the launch plan (lanes a row,
     rows a warp, wide rows cut into window chunks), each warp's codes
     staged one a byte and read four at a time as words; each lane's run
@@ -216,7 +222,8 @@ def test_pair_emulation_all_ones():
 # --------------------------------------------------------------------------
 
 def _net_shape(C):
-    """(P, W): registers a lane and warps a row of the network branch."""
+    """(P, W): registers a lane and warps a sequence of C words in the
+    network (csrc/sort_net.cuh)."""
     L = max(32, ck._pow2_at_least(C))
     return (L // 32, 1) if L <= 512 else (16, L // 512)
 
@@ -226,54 +233,175 @@ def _order(a, b, asc):
     return np.where(asc, lo, hi), np.where(asc, hi, lo)
 
 
-def _emulate_net(words, C, pad):
-    """The network branch on words [R, C] (uint32 or uint64): x[r, w, l, p]
-    is register p of lane l of warp w; returns the sorted [R, C]."""
-    R = words.shape[0]
-    P, W = _net_shape(C)
+def _lg(n):
+    return int(n).bit_length() - 1
+
+
+def _cube_words(P, W, word_bytes):
+    """sort_net.cuh's cube_words: the words a thread holds a span apart in
+    the cube layout (1: every long stride pairwise)."""
+    return 1 if word_bytes == 8 and W < 16 else min(W, P)
+
+
+def _cube_index(P, W, tid, m, word_bytes=4):
+    """sort_net.cuh's cube_index: the in-sequence index of register m of
+    thread tid in the layout of the long strides."""
+    lg_span = _lg(32 * P)
+    G = _cube_words(P, W, word_bytes)
+    g = _lg(G)
+    lane, wr = tid & 31, tid >> 5
+    return (lane | ((m >> g) << 5) | ((wr & (G - 1)) << (lg_span - g))
+            | ((m & (G - 1)) << lg_span) | ((wr >> g) << (lg_span + g)))
+
+
+def _pair_index(t, j):
+    """The lower index of pair t at stride j (the pairwise passes)."""
+    return ((t & ~(j - 1)) << 1) | (t & (j - 1))
+
+
+def _network(x, P, W, kfirst=2, flip=None):
+    """sort_net.cuh's net_sort on x[R, 32W, P] (register p of thread tid
+    in the normal layout: index tid * P + p): merges kfirst .. L, each
+    sequence ascending, or descending where flip[r]. Strides of a span
+    (32 P) and more go through the sequence's shared copy (an unpadded
+    array here: the padding is checked on its own): pairwise at the cube's
+    span (32 P G) and more, then in the cube layout's registers."""
+    R = x.shape[0]
     span = 32 * P
     L = span * W
-    wr = np.arange(W)[:, None, None]
-    lane = np.arange(32)[None, :, None]
-    p = np.arange(P)[None, None, :]
-    e = wr * span + p * 32 + lane                  # coalesced load slot
-    base = (wr * 32 + lane) * P                    # in-row index of x[0]
-    idx = base + p                                 # in-row index of x[p]
-    x = np.full((R, W, 32, P), pad, words.dtype)
-    inside = np.broadcast_to(e < C, x.shape[1:])
-    x[:, inside] = words[:, e[inside]]
-    k = 2
+    G = _cube_words(P, W, x.dtype.itemsize)
+    cube = span * G
+    tid = np.arange(32 * W)[:, None]
+    lane = tid & 31
+    base = tid * P
+    idx = (base + np.arange(P)[None, :]).ravel()
+    cidx = _cube_index(P, W, tid, np.arange(P)[None, :],
+                       x.dtype.itemsize)                 # [32W, P]
+    flip = np.zeros(R, bool) if flip is None else np.asarray(flip)
+    f = flip[:, None]
+    x = x.copy()
+    k = kfirst
     while k <= L:
-        if k > span:                               # shared memory
-            s = np.empty((R, L), words.dtype)
-            s[:, idx.ravel()] = x.reshape(R, -1)
+        if k > span:                               # long_merge
+            s = np.empty((R, L), x.dtype)
+            s[:, idx] = x.reshape(R, -1)
             j = k // 2
-            while j >= span:
-                t = np.arange(L // 2)
-                i = ((t & ~(j - 1)) << 1) | (t & (j - 1))
+            while j >= cube:
+                i = _pair_index(np.arange(L // 2), j)
                 s[:, i], s[:, i + j] = _order(s[:, i], s[:, i + j],
-                                              (i & k) == 0)
+                                              ((i & k) == 0)[None, :] != f)
                 j //= 2
-            x = s[:, idx.ravel()].reshape(x.shape)
+            if G > 1:
+                xc = s[:, cidx]
+                j = min(k // 2, cube // 2)
+                while j >= span:
+                    d = j // span
+                    for m in range(P):
+                        if m & d:
+                            continue
+                        asc = ((cidx[:, m] & k) == 0)[None, :] != f
+                        xc[:, :, m], xc[:, :, m + d] = _order(
+                            xc[:, :, m], xc[:, :, m + d], asc)
+                    j //= 2
+                s[:, cidx.ravel()] = xc.reshape(R, -1)
+            x = s[:, idx].reshape(x.shape)
         j = min(k // 2, span // 2)
         while j > 0:
             if j >= P:                             # lane shuffle
                 m = j // P
-                y = x[:, :, np.arange(32) ^ m, :]
-                keep_min = ((lane & m) == 0) == ((base & k) == 0)
+                y = x.reshape(R, W, 32, P)[:, :, np.arange(32) ^ m, :]
+                y = y.reshape(x.shape)
+                keep_min = ((lane & m) == 0)[None] == (
+                    ((base & k) == 0)[None] != f[:, :, None])
                 x = np.where(keep_min, np.minimum(x, y), np.maximum(x, y))
             else:                                  # registers
                 for q in range(P):
                     if q & j:
                         continue
-                    asc = (q & k) == 0 if k < P else (base[..., 0] & k) == 0
+                    asc = ((q & k) == 0) if k < P else (base[:, 0] & k) == 0
+                    asc = np.broadcast_to(asc, (32 * W,))[None, :] != f
                     x[..., q], x[..., q | j] = _order(x[..., q],
                                                       x[..., q | j], asc)
             j //= 2
         k *= 2
-    s = np.empty((R, L), words.dtype)
-    s[:, idx.ravel()] = x.reshape(R, -1)
-    return s[:, :C]
+    return x
+
+
+def _coalesced_slots(P, W):
+    """[32W, P]: the slot register p of thread tid loads (and stores out
+    of shared memory) in the kernels: warp * 32 P + 32 p + lane."""
+    tid = np.arange(32 * W)[:, None]
+    return (tid >> 5) * 32 * P + np.arange(P)[None, :] * 32 + (tid & 31)
+
+
+def _emulate_net(words, C, pad):
+    """The network branch (sort_rows_net) on words [R, C] (uint32 or
+    uint64): the coalesced loads, pads made in registers, the network, and
+    the sorted row out of shared memory; returns the sorted [R, C]."""
+    R = words.shape[0]
+    P, W = _net_shape(C)
+    L = 32 * P * W
+    e = _coalesced_slots(P, W)
+    x = np.full((R,) + e.shape, pad, words.dtype)
+    inside = e < C
+    x[:, inside] = words[:, e[inside]]
+    # out through shared memory in the normal layout (index tid P + p)
+    return _network(x, P, W).reshape(R, L)[:, :C]
+
+
+def _global_pass(w, L, j, m, S):
+    """sort_global_pass<S>: strides j .. j / 2^(S-1) of merge m over the
+    flat scratch w, thread t on the 2^S words b + q * jl."""
+    jl = j >> (S - 1)
+    t = np.arange(w.size >> S)
+    lo = t & (jl - 1)
+    b = ((t - lo) << S) | lo
+    pos = b[:, None] + np.arange(1 << S)[None, :] * jl
+    assert np.array_equal(np.sort(pos.ravel()), np.arange(w.size))
+    v = w[pos]
+    asc = ((b & (L - 1) & m) == 0)
+    d = (1 << S) // 2
+    while d > 0:
+        for q in range(1 << S):
+            if not q & d:
+                v[:, q], v[:, q + d] = _order(v[:, q], v[:, q + d], asc)
+        d //= 2
+    w = w.copy()
+    w[pos] = v
+    return w
+
+
+def _emulate_global(words, C, pad):
+    """The global branch (L > SORT_NET_MAX): sort_chunk's chunk sort from
+    the inputs (chunks alternately ascending and descending), then for
+    each merge m > E the global passes (up to four strides each) and
+    sort_chunk's in-chunk merge; returns the sorted [R, C] and the passes'
+    stride counts."""
+    E = ck.SORT_NET_MAX
+    R = words.shape[0]
+    L = ck._pow2_at_least(C)
+    n = R * (L // E)
+    P, W = _net_shape(E)
+    src = np.full((R, L), pad, words.dtype)
+    src[:, :C] = words
+    c0 = (np.arange(n) % (L // E)) * E
+    e = _coalesced_slots(P, W)
+    x = _network(src.reshape(n, E)[:, e], P, W, 2, (c0 & E) != 0)
+    w = x.reshape(-1)                              # normal layout out
+    passes = []
+    m = 2 * E
+    while m <= L:
+        left, j = _lg(m // E), m // 2
+        while left > 0:
+            S = min(left, 4)
+            w = _global_pass(w, L, j, m, S)
+            passes.append(S)
+            j >>= S
+            left -= S
+        x = w.reshape(n, 32 * W, P)                # in, to the normal layout
+        w = _network(x, P, W, E, (c0 & m) != 0).reshape(-1)
+        m *= 2
+    return w.reshape(R, L)[:, :C], passes
 
 
 def _operands(rng, R, C):
@@ -286,9 +414,27 @@ def _operands(rng, R, C):
 
 
 _BIAS = np.uint32(0x80000000)
+# the network branch: one warp a row up to 512 slots, then 2-32 warps a
+# row up to 16,384 (6,080 is the repeat64 tail's row)
+_NET_WIDTHS = [1, 5, 100, 285, 402, 513, 4096, 4097, 6080, 10000, 16384]
+# the global branch: one, three and five merges past a chunk, passes of
+# 1, 2, 3 and 4 strides
+_GLOBAL_WIDTHS = [(2, 16385), (2, 40000), (1, 200000)]
 
 
-@pytest.mark.parametrize("C", [1, 5, 100, 285, 402, 513, 4096])
+def _words_key_val(key, val):
+    return ((key.view(np.uint32) ^ _BIAS).astype(np.uint64) << np.uint64(
+        32)) | (val.view(np.uint32) ^ _BIAS).astype(np.uint64)
+
+
+def _unpack_key_val(got):
+    gk = ((got >> np.uint64(32)).astype(np.uint32) ^ _BIAS).view(np.int32)
+    gv = ((got & np.uint64(0xFFFFFFFF)).astype(np.uint32) ^ _BIAS).view(
+        np.int32)
+    return gk, gv
+
+
+@pytest.mark.parametrize("C", _NET_WIDTHS)
 def test_sort_network_emulation_key_only(C):
     """32-bit words key ^ 2^31, pads all-ones: equals np.sort and the
     plain version."""
@@ -302,19 +448,15 @@ def test_sort_network_emulation_key_only(C):
         got, ck.sort_rows_plain(torch.from_numpy(key)).numpy())
 
 
-@pytest.mark.parametrize("C", [1, 5, 100, 285, 402, 513, 4096])
+@pytest.mark.parametrize("C", _NET_WIDTHS)
 def test_sort_network_emulation_key_val(C):
     """64-bit words (key ^ 2^31) << 32 | (val ^ 2^31), with INT32_MAX
     slots that must sort before the padding: equals np.lexsort, the plain
     version and the Pallas sorter."""
     rng = np.random.RandomState(1000 + C)
     key, val = _operands(rng, 3, C)
-    words = ((key.view(np.uint32) ^ _BIAS).astype(np.uint64) << np.uint64(
-        32)) | (val.view(np.uint32) ^ _BIAS).astype(np.uint64)
-    got = _emulate_net(words, C, np.uint64(2**64 - 1))
-    gk = ((got >> np.uint64(32)).astype(np.uint32) ^ _BIAS).view(np.int32)
-    gv = ((got & np.uint64(0xFFFFFFFF)).astype(np.uint32) ^ _BIAS).view(
-        np.int32)
+    gk, gv = _unpack_key_val(_emulate_net(_words_key_val(key, val), C,
+                                          np.uint64(2**64 - 1)))
     order = np.lexsort((val, key), axis=-1)
     np.testing.assert_array_equal(gk, np.take_along_axis(key, order, 1))
     np.testing.assert_array_equal(gv, np.take_along_axis(val, order, 1))
@@ -328,19 +470,196 @@ def test_sort_network_emulation_key_val(C):
         np.testing.assert_array_equal(gv, np.asarray(jv))
 
 
-def test_sort_network_shared_pad_is_conflict_free():
-    """The kernel's shared-memory index i + (i >> 5) (32-bit words) and
-    i + (i >> 4) (64-bit) puts a warp's strided stores (lane l, register
-    p: slot 16 l + p) and its coalesced loads (slot 32 q + l) in distinct
-    banks within each 128-byte access phase."""
-    lane = np.arange(32)
-    for shift, words_per_phase, bank_words in ((5, 32, 1), (4, 16, 2)):
-        for p in range(16):
-            for slots in (16 * lane + p, 32 * p + lane):
-                pos = slots + (slots >> shift)
-                for ph in range(0, 32, words_per_phase):
-                    banks = (pos[ph:ph + words_per_phase] * bank_words) % 32
-                    assert len(set(banks.tolist())) == words_per_phase
+@pytest.mark.parametrize("R,C", _GLOBAL_WIDTHS)
+def test_sort_global_branch_emulation(R, C):
+    """Rows past one block: the chunk sort, the multi-stride global
+    passes and the in-chunk merges, key-only and (key, val), equal the
+    plain version; 200,000 slots (L = 2^18) reach a pass of four
+    strides."""
+    rng = np.random.RandomState(C)
+    key, val = _operands(rng, R, C)
+    got, passes = _emulate_global(key.view(np.uint32) ^ _BIAS, C,
+                                  np.uint32(0xFFFFFFFF))
+    np.testing.assert_array_equal((got ^ _BIAS).view(np.int32),
+                                  ck.sort_rows_plain(
+                                      torch.from_numpy(key)).numpy())
+    words, p2 = _emulate_global(_words_key_val(key, val), C,
+                                np.uint64(2**64 - 1))
+    gk, gv = _unpack_key_val(words)
+    pk, pv = ck.sort_rows_plain(torch.from_numpy(key), torch.from_numpy(val))
+    np.testing.assert_array_equal(gk, pk.numpy())
+    np.testing.assert_array_equal(gv, pv.numpy())
+    L = ck._pow2_at_least(C)
+    merges = _lg(L // ck.SORT_NET_MAX)
+    assert passes == p2 and sum(passes) == merges * (merges + 1) // 2
+    assert max(passes) <= 4 and (C < 200000 or 4 in passes)
+
+
+def _conflict_free(pos, word_bytes):
+    """Whether a warp's 32 shared-memory word positions (in access order)
+    fall in distinct banks within each 128-byte phase."""
+    per_phase = 128 // word_bytes
+    for ph in range(0, 32, per_phase):
+        banks = (pos[ph:ph + per_phase] * (word_bytes // 4)) % 32
+        if len(set(banks.tolist())) != per_phase:
+            return False
+    return True
+
+
+def _padded(i, word_bytes):
+    return i + (i >> (5 if word_bytes == 4 else 4))
+
+
+@pytest.mark.parametrize("C", _NET_WIDTHS)
+def test_sort_network_shared_pad_is_conflict_free(C):
+    """The kernels' shared-memory index i + (i >> 5) (32-bit words) and
+    i + (i >> 4) (64-bit) puts each warp's accesses in distinct banks
+    within each 128-byte phase: the normal layout's strided stores (thread
+    tid, register p: slot tid P + p), the coalesced loads and stores (slot
+    warp 32P + 32p + lane), the cube layout's registers (a permutation of
+    the sequence) and the pairwise passes; at every W of 1-32 warps."""
+    P, W = _net_shape(C)
+    L = 32 * P * W
+    tid = np.arange(32 * W)[:, None]
+    m = np.arange(P)[None, :]
+    normal = tid * P + m
+    coalesced = _coalesced_slots(P, W)
+    for word_bytes in (4, 8):
+        G = _cube_words(P, W, word_bytes)
+        cube = _cube_index(P, W, tid, m, word_bytes)
+        assert G == 1 or np.array_equal(np.sort(cube.ravel()), np.arange(L))
+        for v in [normal, coalesced] + ([cube] if G > 1 else []):
+            for w in range(W):
+                for q in range(P):
+                    assert _conflict_free(
+                        _padded(v[32 * w:32 * w + 32, q], word_bytes),
+                        word_bytes)
+        j = L // 2
+        while j >= 32 * P * G:
+            for t0 in range(0, L // 2, 32):
+                i = _pair_index(np.arange(t0, t0 + 32), j)
+                assert _conflict_free(_padded(i, word_bytes), word_bytes)
+                assert _conflict_free(_padded(i + j, word_bytes), word_bytes)
+            j //= 2
+
+
+_SORT_NET_CUH = os.path.join(os.path.dirname(ck.__file__), os.pardir,
+                             "csrc", "sort_net.cuh")
+
+
+def test_sort_net_limit_matches_the_source():
+    """SORT_NET_MAX is csrc/sort_net.cuh's kMaxLen = 32 kP kMaxWarps."""
+    assert ck.SORT_NET_MAX == 32 * _cu_const("kP", _SORT_NET_CUH) \
+        * _cu_const("kMaxWarps", _SORT_NET_CUH)
+
+
+# --------------------------------------------------------------------------
+# sort_cols
+# --------------------------------------------------------------------------
+
+def _col_plan(rows):
+    """csrc/sort_cols.cu's plan for columns of `rows` rows: (P, Wc, NC,
+    CS): registers a lane and warps a column, columns a block, and the
+    shared tile's column stride (room for a padded column, congruent with
+    Wc modulo the 32 banks)."""
+    P, Wc = _net_shape(rows)
+    pl_ = _padded(32 * P * Wc, 4)
+    return P, Wc, 32 // Wc, pl_ + ((Wc - pl_ % 32) % 32 + 32) % 32
+
+
+def _emulate_sort_cols(x):
+    """sort_cols_net on int32 x [rows, cols], all blocks at once: the
+    tile read row by row into the column-major padded tile, each column
+    group's normal-layout registers (pads past rows made there), the
+    network, the column written back, the tile stored row by row."""
+    rows, cols = x.shape
+    P, Wc, NC, CS = _col_plan(rows)
+    blocks = -(-cols // NC)
+    s = np.full((blocks, NC * CS), 0xDEADBEEF, np.uint32)
+    i = np.arange(rows * NC)
+    l, c = i // NC, i % NC
+    col = np.arange(blocks)[:, None] * NC + c[None, :]     # [blocks, i]
+    ok = col < cols
+    addr = c * CS + _padded(l, 4)
+    bi = np.broadcast_to(np.arange(blocks)[:, None], ok.shape)
+    s[bi[ok], np.broadcast_to(addr, ok.shape)[ok]] = (
+        x[np.broadcast_to(l, ok.shape)[ok], col[ok]].view(np.uint32) ^ _BIAS)
+    tid = np.arange(1024)
+    grp, ct = tid // (32 * Wc), tid % (32 * Wc)
+    ii = ct[:, None] * P + np.arange(P)[None, :]           # [1024, P]
+    live = (np.arange(blocks)[:, None] * NC + grp[None, :]) < cols
+    regs = np.where(live[:, :, None] & (ii < rows)[None],
+                    s[:, grp[:, None] * CS + _padded(ii, 4)],
+                    np.uint32(0xFFFFFFFF))
+    v = _network(regs.reshape(blocks * NC, 32 * Wc, P), P, Wc)
+    v = v.reshape(blocks, 1024, P)
+    back = grp[:, None] * CS + _padded(ii, 4)
+    keep = np.broadcast_to(ii < rows, back.shape)
+    s[:, back[keep]] = v[:, keep]
+    out = np.zeros_like(x)
+    out[np.broadcast_to(l, ok.shape)[ok], col[ok]] = (
+        s[bi[ok], np.broadcast_to(addr, ok.shape)[ok]] ^ _BIAS).view(np.int32)
+    return out
+
+
+# (rows, cols): one to 32 columns a block, ragged last blocks, rows that
+# are not a power of two, 2,048 (the chip check's length) and the limit
+_COL_SHAPES = [(1, 1), (5, 3), (33, 40), (300, 37), (512, 33), (1000, 17),
+               (2048, 24), (3000, 5), (5000, 3), (10000, 1), (16384, 2)]
+
+
+@pytest.mark.parametrize("rows,cols", _COL_SHAPES)
+def test_sort_cols_emulation_matches_plain(rows, cols):
+    rng = np.random.RandomState(rows + cols)
+    x, _ = _operands(rng, rows, cols)
+    got = _emulate_sort_cols(x)
+    np.testing.assert_array_equal(got, np.sort(x, axis=0))
+    np.testing.assert_array_equal(
+        got, ck.sort_cols_plain(torch.from_numpy(x)).numpy())
+    np.testing.assert_array_equal(
+        got, ck.sort_cols(torch.from_numpy(x)).numpy())
+
+
+@pytest.mark.parametrize("rows,cols", [(300, 37), (1000, 17), (64, 512)])
+def test_sort_cols_emulation_matches_the_prototype(rows, cols, monkeypatch,
+                                                   tmp_path):
+    """Against tools/colsort_proto.py::sort_cols_pallas in interpret mode,
+    which takes a power-of-two length and whole blocks of columns: the
+    columns padded with INT32_MAX rows (which sort last), one block of all
+    columns or blocks of 256."""
+    import importlib
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    proto = importlib.import_module("tools.colsort_proto")
+    rng = np.random.RandomState(rows * cols)
+    x, _ = _operands(rng, rows, cols)
+    Lp = ck._pow2_at_least(rows)
+    xp = np.full((Lp, cols), _I32_MAX, np.int32)
+    xp[:rows] = x
+    want = np.asarray(proto.sort_cols_pallas(
+        jnp.asarray(xp), blk=256 if cols % 256 == 0 else cols,
+        interpret=True))[:rows]
+    np.testing.assert_array_equal(_emulate_sort_cols(x), want)
+
+
+@pytest.mark.parametrize("rows", [1, 33, 512, 1000, 2048, 5000, 16384])
+def test_sort_cols_tile_is_conflict_free(rows):
+    """Each warp's tile access (32 / NC rows x NC columns, column-major at
+    stride CS, padded rows) falls in 32 distinct banks; the columns'
+    regions (padded length of the network) do not overlap; the tile fits
+    two blocks an SM (2 x 227 KB would not, 2 x 114 does)."""
+    P, Wc, NC, CS = _col_plan(rows)
+    assert CS >= _padded(32 * P * Wc, 4) and 4 * NC * CS <= 114 * 1024
+    for i0 in range(0, rows * NC, 32):
+        i = np.arange(i0, i0 + 32)
+        addr = (i % NC) * CS + _padded(i // NC, 4)
+        assert _conflict_free(addr, 4)
+
+
+def test_sort_cols_refuses_past_its_limit():
+    x = torch.zeros((ck.SORT_NET_MAX + 1, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match=str(ck.SORT_NET_MAX)):
+        ck.sort_cols(x)
+    assert ck.sort_cols(x[:ck.SORT_NET_MAX]).shape == (ck.SORT_NET_MAX, 2)
 
 
 # --------------------------------------------------------------------------

@@ -160,9 +160,11 @@ def test_cpu_wrappers_do_not_count_launches():
     rec = ck.table_record(tab, tab, tab)
     ck.dup_scan(win, win, ones, win, rec, 3)
     ck.dup_stats(win, win, ones, win, rec, 3, 9)
+    ck.sort_cols(key)
     assert ck.LAUNCHES == {"window_hashes": 0, "stats_accum": 0,
                            "pair_counts": 0, "sort_rows": 0, "dup_scan": 0,
-                           "dup_stats": 0}
+                           "dup_stats": 0, "sort_cols": 0}
+    assert ck.SORT_ROWS_WIDTHS == {}
     assert [k["name"] for k in ck.KERNELS] == list(ck.LAUNCHES)
 
 
@@ -186,6 +188,8 @@ def test_non_cpu_tensors_never_fall_back():
         ck.sort_rows(key)
     with pytest.raises(ValueError):
         ck.sort_rows(key, torch.zeros((4, 8), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        ck.sort_cols(key)
     tab = torch.zeros(16, dtype=torch.int32)
     meta_valid = torch.zeros((4, 8), dtype=torch.bool)
     rec = ck.table_record(tab, tab, tab)

@@ -18,6 +18,7 @@ from tests.oracle_pe import oracle_pe_matrices
 from tests.test_pe_infer import _make_batch, _sample_reads
 from tests.test_torch_pe_infer import _assert_same, _dup_graph, _port_batch
 from tests.test_torch_pe_sparse import _assert_same_coo, _coo_dense
+from tools.repeat_workload import repeat_workload
 from vstrains_tpu.ops import pe_infer as JP
 from vstrains_tpu_torch.ops import cuda_kernels as ck
 from vstrains_tpu_torch.ops import pe_infer as TP
@@ -98,6 +99,25 @@ def test_repeat_graph_takes_classic_join(stats_mode):
     assert isinstance(got, TP.PESparseResult) == (stats_mode == "sparse")
     _assert_same_any(got, want)
     _assert_oracle(got, refs, fwd, rve, k)
+
+
+@pytest.mark.parametrize("stats_mode", ["auto", "sparse"])
+def test_repeat64_graph_matches_jax(stats_mode):
+    """A small repeat64 cell (tools/repeat_workload with groups of 64
+    nodes: max_dup 64, so the sparse tail's rows of K x 64 = 95 x 64 slots
+    pad to 8,192, past the 4,096 of the earlier network): 4 groups, 512
+    pairs of 150 bp, k = 55, through both engines, equal to the JAX
+    engines on the same inputs."""
+    refs, fwd, rve, k = repeat_workload(n_groups=4, group_size=64,
+                                        n_pairs=512)
+    assert TP.build_kmer_table(refs, k + 1).max_dup == 64
+    batch = _make_batch(fwd, rve, k + 1)
+    ids = [str(i) for i in range(len(refs))]
+    got, want = _engines(ids, refs, batch, k, stats_mode, batch_size=256)
+    assert isinstance(got, TP.PESparseResult) == (stats_mode == "sparse")
+    _assert_same_any(got, want)
+    nm = got.pair_counts if stats_mode == "sparse" else got.node_mat
+    assert nm.sum() > 0
 
 
 @pytest.mark.parametrize("stats_mode", ["dense", "sparse"])

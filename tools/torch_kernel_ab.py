@@ -16,7 +16,16 @@ redesigns at the shapes its paths give them:
     the paths', at 128 pairs of T = 30,000;
   * pair_counts at the HIV dense batch (B = 16,384, N = 773);
   * sort_rows, (key, val) and key-only, at the N = 50k sparse tail
-    (32,768 x 285) and the HIV sparse tail (65,536 x 402);
+    (32,768 x 285) and the HIV sparse tail (65,536 x 402); and past
+    1,024 slots: 8,192 x 1,025, 2,049 and 3,216 (a HIV cap retry; 2, 4
+    and 8 warps a row in both checkouts' network), then where a checkout
+    with csrc/sort_net.cuh sorts a row in one block up to 16,384 slots
+    and the parent took its global branch, 2,048 x 4,097, 4,096 x 6,080
+    (the repeat64 sparse tail) and 2,048 x 10,000, and 256 x 40,000 (the
+    global branch in both);
+  * the column sort of 2,048 x 2,048: sort_cols where the checkout has
+    it, else sort_rows key-only on the transpose (the parent's route,
+    transposes included);
   * the classic probe's walk, where both checkouts have dup_scan: the
     dense engine's stats (a checkout with dup_stats runs it; one without
     runs dup_scan's slot plane through stats_accum) at the repeat cell's
@@ -40,7 +49,7 @@ than its wrapper's host time is timed back to back) and "host-paced"
 base, this, this, base; the result (the card's name and power limit,
 every turn's times and each shape's mean per checkout) is printed as one
 JSON line and written to PATH when given, with the SASS instruction
-counts of each checkout's window_hashes and classic-probe kernels
+counts of each checkout's window_hashes, classic-probe and sort kernels
 (`chip_smoke.sass_summary`).
 """
 
@@ -119,7 +128,27 @@ for R, C in ((32768, 285), (65536, 402)):
                            .astype(np.int32)).to(dev)
     time_both(f"sort_rows (key, val) {R}x{C}", lambda: ck.sort_rows(key, val))
     time_both(f"sort_rows key-only {R}x{C}", lambda: ck.sort_rows(key))
+for R, C, forms in ((8192, 1025, 2), (8192, 2049, 2), (8192, 3216, 2),
+                      (2048, 4097, 2), (4096, 6080, 2), (2048, 10000, 2),
+                      (256, 40000, 2)):
+    key = torch.from_numpy(rng.randint(-2**31, 2**31, (R, C))
+                           .astype(np.int32)).to(dev)
+    val = torch.from_numpy(rng.randint(-2**31, 2**31, (R, C))
+                           .astype(np.int32)).to(dev)
+    time_both(f"sort_rows (key, val) {R}x{C}", lambda: ck.sort_rows(key, val),
+              iters=10)
+    if forms == 2:
+        time_both(f"sort_rows key-only {R}x{C}", lambda: ck.sort_rows(key),
+                  iters=10)
 del key, val
+x = torch.from_numpy(rng.randint(-2**31, 2**31, (2048, 2048))
+                     .astype(np.int32)).to(dev)
+if hasattr(ck, "sort_cols"):
+    time_both("column sort 2048x2048", lambda: ck.sort_cols(x))
+else:
+    time_both("column sort 2048x2048",
+              lambda: ck.sort_rows(x.T.contiguous()).T)
+del x
 # the classic probe's walk: the parent's dup_scan slot plane, read by
 # stats_accum (dense) or turned into the sparse tail's planes by torch
 # passes, against this checkout's dup_stats / dup_scan; both checkouts see
@@ -254,7 +283,7 @@ def main(argv=None) -> int:
         lib = max(libs, key=os.path.getmtime)
         sass[name] = [line for line in sass_summary(lib)
                       if line.startswith(("sass window_hashes",
-                                          "sass dup_"))]
+                                          "sass dup_", "sass sort_"))]
     res = {"card": smi, "turns": turns, "mean_ms": mean, "sass": sass}
     line = json.dumps(res)
     print(line)

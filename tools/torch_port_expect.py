@@ -22,6 +22,11 @@ Generates the two datasets the port is held to, runs the JAX CLI
     262,144 pairs of 150 bp; seed 5), all pairs through `infer_pe_links`
     (stats_mode="auto", which keeps N = 1,024 dense at batch 16,384);
     the record holds its `write_pe_files` digests;
+  * "repeat64": the same generator with 16 groups of 64 nodes (max_dup
+    about 64, so the sparse tail's rows of K x depth = 95 x 64 slots pad
+    to 8,192), 262,144 pairs of which the first 65,536 run through
+    `infer_pe_links` (stats_mode="auto", dense at N = 1,024); the record
+    holds its `write_pe_files` digests;
   * "r300k": `bench.synth_workload` with 300,000 nodes of 200 bp (past
     the packed probe's 2^18 node ids: the sparse engine and the classic
     probe) and 1,048,576 pairs, seed 0; the first 65,536 pairs through
@@ -35,7 +40,7 @@ Generates the two datasets the port is held to, runs the JAX CLI
     3) through the JAX CLI with `--per-component` (one worker) and
     `--pe-batch-size 512`; the per-component stages write no
     gfa/split_graph_final.gfa, so the record holds the other outputs.
-The repeat and r300k records also hold the digests of their generated
+The repeat, repeat64 and r300k records also hold the digests of their generated
 inputs (`tools/repeat_workload.workload_digests`).
 
 Both generators run in a child process with PYTHONHASHSEED=0:
@@ -53,7 +58,7 @@ told apart from a port fault), runs the port CLI and compares the output
 digests.
 
 Usage:  JAX_PLATFORMS=cpu python tools/torch_port_expect.py [--workdir DIR]
-        [--only synth|hiv|r50k|repeat|r300k|metaviral]
+        [--only synth|hiv|r50k|repeat|repeat64|r300k|metaviral]
 """
 
 from __future__ import annotations
@@ -87,6 +92,8 @@ R50K_BATCH = 16384
 REPEAT_KW = dict(n_groups=32, group_size=32, motif_len=80, tail_len=320,
                  n_pairs=262_144, read_len=150, k=55, seed=5)
 REPEAT_BATCH = 16384
+REPEAT64_KW = dict(REPEAT_KW, n_groups=16, group_size=64)
+REPEAT64_CHECKED_PAIRS = 65_536
 R300K_KW = dict(n_nodes=300_000, node_len=200, n_pairs=1_048_576, seed=0)
 R300K_CHECKED_PAIRS = 65_536
 R300K_BATCH = 16384
@@ -318,18 +325,18 @@ def _record_engine(name: str, workdir: str, generator: dict, refs, fwd, rve,
     }
 
 
-def record_repeat(workdir: str) -> dict:
+def record_repeat(workdir: str, name: str = "repeat", kwargs=REPEAT_KW,
+                  checked: int = REPEAT_KW["n_pairs"]) -> dict:
     from tools.repeat_workload import repeat_workload
     from vstrains_tpu.ops.pe_infer import build_kmer_table
-    refs, fwd, rve, k = repeat_workload(**REPEAT_KW)
+    refs, fwd, rve, k = repeat_workload(**kwargs)
     max_dup = build_kmer_table(refs, k + 1).max_dup
     rec = _record_engine(
-        "repeat", workdir, {"function": "tools.repeat_workload."
-                                        "repeat_workload",
-                            "kwargs": REPEAT_KW,
-                            "packing": "vstrains_tpu.core.fastq._pack"},
-        refs, fwd, rve, k, REPEAT_KW["n_pairs"], REPEAT_BATCH,
-        "write_pe_files", "sort", "dense")
+        name, workdir, {"function": "tools.repeat_workload.repeat_workload",
+                        "kwargs": kwargs,
+                        "packing": "vstrains_tpu.core.fastq._pack"},
+        refs, fwd, rve, k, checked, REPEAT_BATCH, "write_pe_files", "sort",
+        "dense")
     rec["max_dup"] = max_dup
     return rec
 
@@ -351,7 +358,7 @@ def main(argv=None) -> int:
                     help="where datasets and outputs go [default: a "
                          "fresh temporary directory]")
     ap.add_argument("--only", choices=["synth", "hiv", "r50k", "repeat",
-                                       "r300k", "metaviral"],
+                                       "repeat64", "r300k", "metaviral"],
                     default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, REPO)
@@ -369,6 +376,9 @@ def main(argv=None) -> int:
         rec["r50k"] = record_r50k(workdir)
     if args.only in (None, "repeat"):
         rec["repeat"] = record_repeat(workdir)
+    if args.only in (None, "repeat64"):
+        rec["repeat64"] = record_repeat(workdir, "repeat64", REPEAT64_KW,
+                                        REPEAT64_CHECKED_PAIRS)
     if args.only in (None, "r300k"):
         rec["r300k"] = record_r300k(workdir)
     if args.only in (None, "metaviral"):
@@ -376,7 +386,7 @@ def main(argv=None) -> int:
     rec["compared_outputs"] = list(OUTPUT_FILES)
     rec["recorded_with"] = ("vstrains_tpu on the CPU: the CLI for synth, "
                            "hiv and metaviral, infer_pe_links for r50k, "
-                           "repeat and r300k")
+                           "repeat, repeat64 and r300k")
     with open(OUT_JSON, "w") as fh:
         json.dump(rec, fh, indent=1, sort_keys=True)
         fh.write("\n")

@@ -127,6 +127,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                            p],
         "vt_sort_rows": [p, p, i64, i64, p, p, p, p],
         "vt_sort_rows_uses_network": [i64],
+        "vt_sort_cols": [p, i64, i64, p, p],
         "vt_dup_stats": [*[p] * 5, *[i64] * 5, p, p, p],
         "vt_dup_scan": [*[p] * 5, *[i64] * 4, p, p, p],
     }

@@ -1,4 +1,4 @@
-"""The PE engine's six hand-written CUDA kernels, each beside its plain
+"""The port's seven hand-written CUDA kernels, each beside its plain
 PyTorch version.
 
   * window_hashes_wire / window_hashes_bytes: csrc/window_hashes.cu,
@@ -8,9 +8,10 @@ PyTorch version.
   * pair_counts: csrc/pair_counts.cu, replacing
     pallas_kernels.py::pair_matmuls_pallas;
   * sort_rows: csrc/sort_rows.cu, replacing
-    pallas_sort.py::sort_rows_pallas (the sparse engine's row sorts;
-    key-only on the transpose, the column sorter prototype
-    tools/colsort_proto.py::sort_cols_pallas);
+    pallas_sort.py::sort_rows_pallas (the sparse engine's row sorts);
+  * sort_cols: csrc/sort_cols.cu, replacing the column sorter prototype
+    tools/colsort_proto.py::sort_cols_pallas (no caller on any path, as
+    in the JAX package); it shares sort_rows' network (csrc/sort_net.cuh);
   * dup_stats and dup_scan: csrc/dup_stats.cu and csrc/dup_scan.cu, the
     classic probe's duplicate-run walk (csrc/dup_walk.cuh), fused with the
     per-(read, node) stats for the dense engine and expanded to the sparse
@@ -43,7 +44,10 @@ _M32 = 0xFFFFFFFF
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"window_hashes": 0, "stats_accum": 0,
                             "pair_counts": 0, "sort_rows": 0, "dup_scan": 0,
-                            "dup_stats": 0}
+                            "dup_stats": 0, "sort_cols": 0}
+# sort_rows' launches since the last reset_launches(), by padded row width
+# (which says the branch: the one-block network up to SORT_NET_MAX)
+SORT_ROWS_WIDTHS: Dict[int, int] = {}
 
 # what chip_smoke.py reports for each kernel
 KERNELS = [
@@ -68,12 +72,18 @@ KERNELS = [
      "source": "vstrains_tpu_torch/csrc/dup_stats.cu",
      "replaces": "vstrains_tpu/ops/pe_infer.py:677",
      "note": "port-only: the XLA stage _dup_scan_stats_impl, no TPU kernel"},
+    {"name": "sort_cols", "route": "cuda",
+     "source": "vstrains_tpu_torch/csrc/sort_cols.cu",
+     "replaces": "tools/colsort_proto.py:58",
+     "note": "no caller on any path: the JAX package's column sorter is a "
+             "tested prototype that its engine does not use"},
 ]
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SORT_ROWS_WIDTHS.clear()
 
 
 # --------------------------------------------------------------------------
@@ -389,8 +399,14 @@ def pair_counts(f: torch.Tensor, r: torch.Tensor, acc_nm: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
-# row sort (csrc/sort_rows.cu)
+# row and column sorts (csrc/sort_rows.cu, csrc/sort_cols.cu, both on the
+# network of csrc/sort_net.cuh)
 # --------------------------------------------------------------------------
+
+# the longest sequence one block's network sorts (csrc/sort_net.cuh
+# kMaxLen): rows up to this padded width, columns up to this many rows
+SORT_NET_MAX = 16384
+
 
 def _pow2_at_least(c: int) -> int:
     L = 1
@@ -412,9 +428,9 @@ def sort_rows_plain(key: torch.Tensor, val: Optional[torch.Tensor] = None):
 
 
 def sort_rows_uses_network(C: int) -> bool:
-    """Whether rows of width C sort in the kernel's register network
-    (else its global-memory passes) — the branch chip_smoke.py exercises
-    both sides of."""
+    """Whether rows of width C sort in one block's register network (else
+    its global branch) — the branch chip_smoke.py exercises both sides
+    of."""
     return bool(_lib().vt_sort_rows_uses_network(_pow2_at_least(C)))
 
 
@@ -434,15 +450,40 @@ def sort_rows(key: torch.Tensor, val: Optional[torch.Tensor] = None):
     key_out = torch.empty_like(key)
     val_out = None if val is None else torch.empty_like(val)
     if key.numel():
-        L = _pow2_at_least(C)
+        L = max(32, _pow2_at_least(C))
+        # the global branch's words: 8 bytes with values, 4 key-only
         scratch = (None if _lib().vt_sort_rows_uses_network(L) else
-                   torch.empty(R * L, dtype=torch.int64, device=key.device))
+                   torch.empty(R * L * (1 if val is None else 2),
+                               dtype=torch.int32, device=key.device))
         _launch("sort_rows", _lib().vt_sort_rows, key.device,
                 key.data_ptr(), None if val is None else val.data_ptr(),
                 R, C, key_out.data_ptr(),
                 None if val_out is None else val_out.data_ptr(),
                 None if scratch is None else scratch.data_ptr())
+        SORT_ROWS_WIDTHS[L] = SORT_ROWS_WIDTHS.get(L, 0) + 1
     return key_out if val is None else (key_out, val_out)
+
+
+def sort_cols_plain(x: torch.Tensor) -> torch.Tensor:
+    """Each column of x ascending."""
+    return torch.sort(x, dim=0).values
+
+
+def sort_cols(x: torch.Tensor) -> torch.Tensor:
+    """Sort each column of int32 [L, W] ascending (L up to
+    SORT_NET_MAX)."""
+    if x.dim() == 2 and x.shape[0] > SORT_NET_MAX:
+        raise ValueError(f"sort_cols: {x.shape[0]} rows, past the "
+                         f"kernel's limit of {SORT_NET_MAX} (one block's "
+                         "network)")
+    if not _on_cuda(x):
+        return sort_cols_plain(x)
+    _expect(x, "x", torch.int32, 2)
+    out = torch.empty_like(x)
+    if x.numel():
+        _launch("sort_cols", _lib().vt_sort_cols, x.device, x.data_ptr(),
+                x.shape[0], x.shape[1], out.data_ptr())
+    return out
 
 
 # --------------------------------------------------------------------------
