@@ -113,11 +113,21 @@ without the final result line):
      shape its shard gave the kernel, against the plain version
      (bit-equal). Two ranks on one card check correctness and the
      shards' kernel shapes, not scaling; no run here has two cards.
+ 15. the kernel warm-up layer, each in a fresh process: `python -m
+     vstrains_tpu_torch.prewarm` on HIV at batch 16,384 (exit 0; its
+     nodes, k and widths those of the phase-5 run's log and batches;
+     window_hashes, stats_accum and pair_counts launched at each width;
+     its record printed); then the HIV CLI with `_build.BUILD_DIR` set to
+     an empty directory (a cold nvcc build on the pipeline's background
+     thread) and once more on the library it built: outputs byte-equal
+     to the JAX record both times, the build's seconds by source,
+     pe_inference and the PE stage's wait at the join printed beside
+     phase 5's.
 dup_stats and dup_scan are timed beside a bound that counts each table
 entry their walks examine once (dup_table_bytes), printed.
-The build also prints ptxas's registers and spills per kernel and, from
-cuobjdump, the instruction counts that show the redesigned kernels'
-designs. Every run above resets
+The build (phase 1) also prints each source's nvcc seconds, ptxas's
+registers and spills per kernel and, from cuobjdump, the instruction
+counts that show the redesigned kernels' designs. Every run above resets
 the launch counts just before and checks just after that its path's
 kernels launched and no other path's did. The line before the last is a
 JSON object with each kernel's launches (each from the run of the path it
@@ -2056,6 +2066,155 @@ _KERNEL_NAMES = ("pair_counts_kernel", "pack_words", "sort_rows_net",
                  "window_hashes_kernel", "dup_scan_kernel")
 
 
+# --------------------------------------------------------------------------
+# phase 15: the kernel warm-up layer
+# --------------------------------------------------------------------------
+
+# a CLI run in a fresh process (run from the repo's root, so that it
+# imports this checkout) whose kernel library lives in the directory
+# argv[1] (module state set here, not a knob of the package): empty, the
+# run builds the kernels cold; built, it reuses them
+_BUILD_DIR_CLI = """
+import json, sys
+from vstrains_tpu_torch.ops import _build
+_build.BUILD_DIR = sys.argv[1]
+from vstrains_tpu_torch import cli
+rc = cli.main(json.loads(sys.argv[2]))
+info = _build.loaded_info() or {}
+print(json.dumps({"rc": rc, "build": {k: v for k, v in info.items()
+                                      if k != "log"}}))
+"""
+
+_BUILD_LINE = "CUDA kernel library "
+
+
+def build_line(out_dir: str) -> str:
+    """The pipeline's line on the kernel library, from a CLI run's log."""
+    with open(os.path.join(out_dir, "vstrains.log")) as fh:
+        lines = [x.strip() for x in fh if _BUILD_LINE in x]
+    if len(lines) != 1:
+        raise AssertionError(f"{out_dir}: {len(lines)} kernel library "
+                             "lines in the log, expected 1")
+    return lines[0]
+
+
+def prewarm_hiv(hiv: dict, hiv_data: str, hiv_out: str) -> dict:
+    """(15a) `python -m vstrains_tpu_torch.prewarm` on the HIV dataset at
+    the CLI run's batch, in a fresh process: exit 0; its nodes and k those
+    of the dense HIV CLI run's log, its widths those of that run's batches
+    (the pipeline's reads through `_length_buckets`); each width launched
+    window_hashes, stats_accum and pair_counts."""
+    import re
+
+    from vstrains_tpu_torch.ops import pe_infer as P
+
+    cli = [a.replace("{data}", hiv_data) for a in hiv["cli"]]
+    keep = ("-g", "-p", "-fwd", "-rve", "-mc", "-ml", "--pe-batch-size")
+    argv = [x for i, a in enumerate(cli) if a in keep
+            for x in (a, cli[i + 1])]
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-m", "vstrains_tpu_torch.prewarm",
+                        *argv], cwd=REPO,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.time() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"prewarm exited {r.returncode}:\n"
+                           f"{r.stderr[-3000:]}")
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    say(f"prewarm (HIV, fresh process, {wall:.2f} s): {json.dumps(rec)}")
+
+    with open(os.path.join(hiv_out, "vstrains.log")) as fh:
+        log = fh.read()
+    k = int(re.search(r"graph kmer size: (\d+)", log).group(1))
+    nodes = int(re.search(r"kmer table: \d+ entries, max_dup=\d+, (\d+) "
+                          "nodes", log).group(1))
+    ids, _, ksize, reads = hiv_inputs(hiv_out, hiv_data)
+    batch = int(argv[argv.index("--pe-batch-size") + 1])
+    buckets = P._length_buckets(reads, ksize + 1, batch)
+    widths = ([wd for wd, _ in buckets] if buckets else
+              [max(reads.fwd_codes.shape[1], reads.rve_codes.shape[1])])
+    want = {"nodes": nodes, "k": k, "widths": widths, "batch": batch,
+            "engine": "dense", "errors": []}
+    got = {key: rec[key] for key in want}
+    if got != want or len(ids) != nodes or ksize != k:
+        raise AssertionError(f"prewarm {got} != the HIV CLI run's {want}")
+    for w in widths:
+        missing = [name for name in DENSE
+                   if rec["launches"][str(w)].get(name, 0) <= 0]
+        if missing:
+            raise AssertionError(f"prewarm width {w}: {missing} never "
+                                 "launched")
+    say(f"prewarm: nodes {nodes}, k {k}, widths {widths} equal the HIV CLI "
+        "run's; each width launched " + ", ".join(DENSE))
+    return rec
+
+
+def cold_build_hiv(hiv: dict, hiv_data: str, hiv_out: str) -> dict:
+    """(15b) The HIV CLI in a fresh process whose kernel library directory
+    is empty (a cold nvcc build on the pipeline's background thread), then
+    again in a fresh process on the library it built (reused): outputs
+    byte-equal to the JAX record both times; the build's seconds, its
+    slowest source, and each run's pe_inference and wait at the join
+    (from its log's kernel library line) printed beside phase 5's
+    in-process run's."""
+    import re
+
+    build_dir = os.path.join(WORK, "cold_build")
+    shutil.rmtree(build_dir, ignore_errors=True)
+    os.makedirs(build_dir)
+    res = {}
+    for run in ("cold", "reused", "in-process"):
+        # "in-process": phase 5's run, after the smoke's own build
+        out = (hiv_out if run == "in-process"
+               else os.path.join(WORK, f"hiv_{run}_out"))
+        build = ({} if run == "in-process" else
+                 run_fresh_cli(hiv, hiv_data, build_dir, out, run)["build"])
+        line = build_line(out)
+        m = re.search(r"waited ([0-9.]+) s", line)
+        if m is None or ("built this run" in line) != (run == "cold"):
+            raise AssertionError(f"HIV CLI ({run} build): {line!r}")
+        with open(os.path.join(out, "timings.json")) as fh:
+            pe_s = {x["stage"]: x["seconds"]
+                    for x in json.load(fh)["stages"]}["pe_inference"]
+        res[run] = dict(build, pe_inference=pe_s, wait=float(m.group(1)))
+        say(f"HIV CLI, {run} build: pe_inference {pe_s:.4f} s; {line}")
+    cold = res["cold"]
+    src = cold["source_seconds"]
+    slow = max(src, key=src.get)
+    say(f"cold build: {cold['seconds']:.3f} s, slowest source {slow} "
+        f"{src[slow]:.3f} s; per source (s): "
+        + json.dumps(dict(sorted(src.items(), key=lambda kv: -kv[1]))))
+    say("HIV pe_inference (s), waited at the join (s): " + ", ".join(
+        f"{run} {r['pe_inference']:.4f}, {r['wait']:.3f}"
+        for run, r in res.items()))
+    return res
+
+
+def run_fresh_cli(hiv: dict, hiv_data: str, build_dir: str, out: str,
+                  run: str) -> dict:
+    """The HIV CLI in a fresh process on the library directory
+    `build_dir`: exit 0, outputs byte-equal to the JAX record, and built
+    (run "cold") or reused. Returns the child's record."""
+    shutil.rmtree(out, ignore_errors=True)
+    argv = [a.replace("{data}", hiv_data).replace("{out}", out)
+            for a in hiv["cli"]] + ["--device", "cuda"]
+    t0 = time.time()
+    r = subprocess.run([sys.executable, "-c", _BUILD_DIR_CLI, build_dir,
+                        json.dumps(argv)], cwd=REPO, capture_output=True,
+                       text=True, timeout=900)
+    wall = time.time() - t0
+    if r.returncode != 0:
+        raise RuntimeError(f"HIV CLI ({run} build) exited {r.returncode}:"
+                           f"\n{r.stderr[-3000:]}")
+    child = json.loads(r.stdout.strip().splitlines()[-1])
+    if child["rc"] != 0 or child["build"].get("built") != (run == "cold"):
+        raise AssertionError(f"HIV CLI ({run} build): {child}")
+    check_digests(f"HIV output ({run} build)", out, hiv["outputs"])
+    say(f"HIV CLI, {run} build: fresh process {wall:.2f} s, outputs "
+        "byte-equal to the JAX record")
+    return child
+
+
 def kernel_name(mangled: str) -> str:
     """A readable name for a mangled kernel symbol of csrc/: the kernel
     and, for the row sorter's network, its word type, registers a lane
@@ -2173,6 +2332,10 @@ def main() -> int:
     _build.load()
     say(f"build: {'compiled' if info['built'] else 'cached'} "
         f"{os.path.relpath(info['path'], REPO)} in {info['seconds']:.2f} s")
+    if info["built"]:
+        say("build seconds per source (one nvcc each, all at once): "
+            + json.dumps(dict(sorted(info["source_seconds"].items(),
+                                     key=lambda kv: -kv[1]))))
     for line in ptxas_summary(info["log"]) + sass_summary(info["path"]):
         say(f"  {line}")
 
@@ -2283,6 +2446,12 @@ def main() -> int:
     shard_checks = rank_world_phase(hiv_data, hiv_out, meta_data, expected)
     sp_check = sp_kernel_check()
     say(f"phases 12-14 (two ranks on one card): {time.time() - t0:.1f} s")
+    # 15. the kernel warm-up layer: the prewarm tool, a cold and a reused
+    # build in fresh processes
+    t0 = time.time()
+    prewarm_hiv(hiv, hiv_data, hiv_out)
+    cold_build_hiv(hiv, hiv_data, hiv_out)
+    say(f"phase 15 (prewarm, cold build): {time.time() - t0:.1f} s")
 
     launches["sort_rows"] = sparse_launches["sort_rows"]
     launches["dup_stats"] = rep_dense["dup_stats"]

@@ -26,6 +26,7 @@ setup(
             "vstrains-tpu-prewarm=vstrains_tpu.prewarm:main",
             "vstrains-tpu-torch=vstrains_tpu_torch.cli:main",
             "vstrains-tpu-torch-pe=vstrains_tpu_torch.pe_cli:main",
+            "vstrains-tpu-torch-prewarm=vstrains_tpu_torch.prewarm:main",
         ],
     },
 )

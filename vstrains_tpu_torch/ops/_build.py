@@ -15,6 +15,10 @@ compiler writes a temporary name first and `os.replace` moves it into
 place, so a concurrent process never loads a half-written library.
 Nothing here runs at import time: the CPU tests import this module on a
 machine without nvcc.
+
+`Prefetch` builds and loads the library on a background thread, so that
+a cold build overlaps the host work a run does before its first kernel
+call; its `join` re-raises the build's error.
 """
 
 from __future__ import annotations
@@ -27,7 +31,10 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -39,6 +46,7 @@ NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+_LOADED: Optional[dict] = None  # build()'s record of the library in _LIB
 
 
 def _sources():
@@ -71,13 +79,23 @@ def _nvcc() -> str:
                        "kernels are built from source at first use")
 
 
+def _compile(nvcc: str, src: str, obj: str):
+    t0 = time.time()
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o",
+                           obj, src], stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    return proc, time.time() - t0
+
+
 def build() -> dict:
     """Compile the kernels unless a library for these sources exists.
-    Returns {"path", "seconds", "built", "log"}; raises on a failed
-    build with the compiler's output."""
+    Returns {"path", "seconds", "built", "log", "source_seconds"} (each
+    source's nvcc seconds; empty when the library was reused); raises on
+    a failed build with the compiler's output."""
     path = library_path()
     if os.path.exists(path):
-        return {"path": path, "seconds": 0.0, "built": False, "log": ""}
+        return {"path": path, "seconds": 0.0, "built": False, "log": "",
+                "source_seconds": {}}
     os.makedirs(BUILD_DIR, exist_ok=True)
     tag = f"{os.getpid()}.{threading.get_ident()}"
     tmp = f"{path}.tmp{tag}"
@@ -85,16 +103,17 @@ def build() -> dict:
     objs = [f"{path}.{os.path.basename(p)}.{tag}.o" for p in cu]
     nvcc = _nvcc()
     t0 = time.time()
-    procs = [(subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c",
-                                "-o", obj, src], stdout=subprocess.PIPE,
-                               stderr=subprocess.STDOUT, text=True), src)
-             for src, obj in zip(cu, objs)]
-    logs, failed = [], []
-    for proc, src in procs:
-        out = proc.communicate()[0]
-        logs.append(f"== {os.path.basename(src)}\n{out}")
+    # one thread a source, so that every nvcc starts at once and each
+    # source's seconds end when its own compiler does
+    with ThreadPoolExecutor(len(cu)) as pool:
+        runs = list(pool.map(_compile, [nvcc] * len(cu), cu, objs))
+    logs, failed, source_seconds = [], [], {}
+    for src, (proc, sec) in zip(cu, runs):
+        name = os.path.basename(src)
+        source_seconds[name] = sec
+        logs.append(f"== {name}\n{proc.stdout}")
         if proc.returncode != 0:
-            failed.append(os.path.basename(src))
+            failed.append(name)
     if not failed:
         link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", tmp, *objs],
                               capture_output=True, text=True)
@@ -113,7 +132,8 @@ def build() -> dict:
     os.replace(tmp, path)
     with open(path + ".log", "w") as fh:
         fh.write(log)
-    return {"path": path, "seconds": seconds, "built": True, "log": log}
+    return {"path": path, "seconds": seconds, "built": True, "log": log,
+            "source_seconds": source_seconds}
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -143,8 +163,85 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use and loaded once per
     process."""
-    global _LIB
+    global _LIB, _LOADED
     with _LOCK:
         if _LIB is None:
-            _LIB = _bind(ctypes.CDLL(build()["path"]))
+            info = build()
+            _LIB = _bind(ctypes.CDLL(info["path"]))
+            _LOADED = info
         return _LIB
+
+
+def loaded_info() -> Optional[dict]:
+    """build()'s record of the library this process loaded, or None."""
+    return _LOADED
+
+
+class Prefetch:
+    """`load()` on a background thread, started here when `device` is a
+    CUDA device (on the CPU nothing starts and nothing is built), so that
+    a cold nvcc build overlaps the host work before the first kernel
+    call. The thread compiles and loads the library and launches
+    nothing. `join()` waits for it, adds the wait to `wait_seconds` and
+    re-raises its exception: a failed build fails the caller with nvcc's
+    output, before any kernel call builds again. Leaving it as a context
+    manager waits for the thread and drops its result (the caller has
+    joined, or is failing for another reason), so no build outlives its
+    caller."""
+
+    def __init__(self, device):
+        self.wait_seconds = 0.0
+        self._exc: Optional[Exception] = None
+        self._thread: Optional[threading.Thread] = None
+        self._started = torch.device(device).type == "cuda"
+        self._preloaded = _LIB is not None
+        if self._started:
+            self._thread = threading.Thread(target=self._run, daemon=True,
+                                            name="vt-kernel-build")
+            self._thread.start()
+
+    def _run(self) -> None:
+        try:
+            load()
+        except Exception as exc:  # re-raised on the caller's thread
+            self._exc = exc
+
+    def join(self) -> None:
+        if self._thread is not None:
+            t0 = time.time()
+            self._thread.join()
+            self.wait_seconds += time.time() - t0
+            self._thread = None
+        exc, self._exc = self._exc, None
+        if exc is not None:
+            raise exc
+
+    def __enter__(self) -> "Prefetch":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def report(self) -> Optional[str]:
+        """One line for the log: the library, whether this run built it
+        or found it, the build's seconds and the caller's wait; None
+        when nothing was started."""
+        if not self._started:
+            return None
+        info = loaded_info()
+        if self._preloaded:
+            how = "already loaded in this process"
+        elif info is None:
+            how = "not loaded"
+        elif info["built"]:
+            slow = max(info["source_seconds"],
+                       key=info["source_seconds"].get)
+            how = (f"built this run in {info['seconds']:.3f} s (slowest "
+                   f"source {slow}: {info['source_seconds'][slow]:.3f} s)")
+        else:
+            how = "reused (built by an earlier run)"
+        path = info["path"] if info else library_path()
+        return (f"CUDA kernel library {path}: {how}; waited "
+                f"{self.wait_seconds:.3f} s for it")

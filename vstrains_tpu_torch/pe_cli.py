@@ -8,7 +8,9 @@ Drop-in interface parity with the reference's child process
 
 reads the canonized GFA's S-lines in file order, runs the device engine,
 and writes `DIR/pe_info` + `DIR/st_info` in the same N^2-line
-`u:v:count` format.
+`u:v:count` format. On a CUDA device the kernel library builds on a
+background thread while the FASTQs load (`ops._build.Prefetch`, as in
+the pipeline); a failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -43,6 +45,10 @@ def main(argv=None) -> int:
                         help="where the engine runs [default: cuda]")
     args = parser.parse_args(argv)
 
+    from vstrains_tpu_torch.device import resolve_device
+    from vstrains_tpu_torch.ops import _build
+    device = resolve_device(args.device)
+
     out_dir = args.dir.rstrip("/")
     shutil.rmtree(out_dir, ignore_errors=True)
     os.makedirs(out_dir, exist_ok=True)
@@ -63,13 +69,18 @@ def main(argv=None) -> int:
     from vstrains_tpu_torch.ops.pe_infer import infer_pe_links, write_pe_files
 
     split_len = args.kmer_size + 1
-    print("matching read pairs against node k-mers")
-    reads = load_read_pairs(args.fwd, args.rve, split_len,
-                            pad_to_multiple=32)
-    print(f"reads: used={reads.used_reads}, with_N={reads.n_reads}, "
-          f"short={reads.short_reads}")
+    with _build.Prefetch(device) as kernels:
+        print("matching read pairs against node k-mers")
+        reads = load_read_pairs(args.fwd, args.rve, split_len,
+                                pad_to_multiple=32)
+        print(f"reads: used={reads.used_reads}, with_N={reads.n_reads}, "
+              f"short={reads.short_reads}")
+        kernels.join()
     result = infer_pe_links(index2id, index2seq, reads, args.kmer_size,
-                            batch_size=args.batch_size, device=args.device)
+                            batch_size=args.batch_size, device=device)
+    build_line = kernels.report()
+    if build_line is not None:
+        print(build_line)
     write_pe_files(result, f"{out_dir}/pe_info", f"{out_dir}/st_info")
 
     print(f"wall time: {time.time() - glb_start:.2f}s")

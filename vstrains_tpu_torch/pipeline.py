@@ -26,10 +26,19 @@ processes, or round-robin over the ranks of an initialized
 torch.distributed world), each on the run's device.
 `args.resume` restarts from the most advanced completed checkpoint.
 Per-stage wall times land in <out>/timings.json (utils/tracing.py).
+
+On a CUDA device, when the PE stage will run, the CUDA kernel library is
+built and loaded on a background thread from the start of the run
+(`ops._build.Prefetch`), so that a cold nvcc build overlaps stages 1-3,
+the FASTQ load and the table build. The PE stage joins it before its
+first kernel call (a failed build raises there, with nvcc's output) and
+logs one line: the library, built this run or reused, the build's
+seconds and the wait at the join.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -56,6 +65,7 @@ from vstrains_tpu_torch.core.gfa import (load_flipped_gfa,
                                          store_reinit_graph, write_gfa)
 from vstrains_tpu_torch.core.pe_store import PEInfo
 from vstrains_tpu_torch.device import resolve_device, run_on
+from vstrains_tpu_torch.ops import _build
 from vstrains_tpu_torch.ops.graph_ops import (assign_edge_flow,
                                               threshold_estimation)
 from vstrains_tpu_torch.ops.pe_infer import (build_kmer_table,
@@ -77,6 +87,12 @@ class PipelineError(Exception):
     pass
 
 
+def _done(resume_from, stage: str) -> bool:
+    """True when the checkpoint `resume_from` is at or past `stage`."""
+    return (resume_from is not None
+            and _STAGE_ORDER[stage] <= _STAGE_ORDER[resume_from])
+
+
 def run(args, logger: logging.Logger = None) -> int:
     """args needs: gfa_file, path_file, fwd, rve, output_dir, min_cov,
     min_len, dev (mirrors the reference CLI namespace); optional: device,
@@ -87,25 +103,28 @@ def run(args, logger: logging.Logger = None) -> int:
         device = resolve_device(getattr(args, "device", "cuda"))
     except RuntimeError as exc:
         raise PipelineError(str(exc)) from exc
-    with run_on(device):
-        return _run(args, logger, device)
+    resume_from = None
+    if getattr(args, "resume", False):
+        resume_from = ckpt.latest_stage(args.output_dir)
+    prefetch = (contextlib.nullcontext() if _done(resume_from, "pe_links")
+                else _build.Prefetch(device))
+    with run_on(device), prefetch as kernels:
+        return _run(args, logger, device, resume_from, kernels)
 
 
-def _run(args, logger: logging.Logger, device: torch.device) -> int:
+def _run(args, logger: logging.Logger, device: torch.device, resume_from,
+         kernels) -> int:
     temp_dir = args.output_dir
     timer = StageTimer(profile_dir=getattr(args, "profile_dir", None),
                        device=device)
     logger.info("vstrains-tpu-torch pipeline started on %s", device)
     t0 = time.time()
 
-    resume_from = None
     if getattr(args, "resume", False):
-        resume_from = ckpt.latest_stage(temp_dir)
         logger.info("resume requested; latest checkpoint: %s", resume_from)
 
     def done(stage: str) -> bool:
-        return (resume_from is not None
-                and _STAGE_ORDER[stage] <= _STAGE_ORDER[resume_from])
+        return _done(resume_from, stage)
 
     dev = getattr(args, "dev", False)
 
@@ -218,6 +237,7 @@ def _run(args, logger: logging.Logger, device: torch.device) -> int:
             table_box = {}
             table_thread = None
             if world_size() > 1:
+                kernels.join()  # the SP hashes launch window_hashes
                 table_box["table"] = build_table_auto(seqs, ksize + 1,
                                                       device, logger)
             else:
@@ -238,6 +258,7 @@ def _run(args, logger: logging.Logger, device: torch.device) -> int:
                         reads.used_reads, reads.n_reads, reads.short_reads)
             if table_thread is not None:
                 table_thread.join()
+            kernels.join()
             t_engine = time.time()
             pe_result = infer_pe_links(
                 ids, seqs, reads, ksize,
@@ -267,6 +288,9 @@ def _run(args, logger: logging.Logger, device: torch.device) -> int:
                 view1.nodes.keys(), pe_result)
             ckpt.save_stage(temp_dir, "pe_links", {
                 "pe_info": pe_info, "dcpy_pe_info": dcpy_pe_info})
+        build_line = kernels.report()
+        if build_line is not None:
+            logger.info(build_line)
 
     # ---- stage 5: edge cleaning ----
     if done("cleaned"):
