@@ -9,8 +9,9 @@ or at the N = 50,000 cell of chip_smoke.py (--r50k).
 `--batch-size 262144` sends the HIV graph to the sparse engine (the
 dense/sparse memory rule); --r50k always takes it (`bench.synth_workload`
 with the record's generator arguments, all 1,048,576 pairs, batch
-16,384). For the sparse engine the record also sums its host-side
-profiler ranges (sparse.queue / sparse.wait / sparse.coo).
+16,384). The record also sums the engine's spans in the profiled call
+(`utils/tracing.profiled()`: pe.table_upload, pe.pack, pe.upload,
+pe.queue, pe.drain, and the sparse engine's pe.wait and pe.coo).
 
 Generates the dataset with the port's generator (child process under
 PYTHONHASHSEED=0) unless --data names one, loads the reads and builds
@@ -20,9 +21,6 @@ the k-mer table (both timed on the host clock), runs
   * times the host wire packing alone (`_wire_batches`),
   * runs it under torch.profiler (CPU + CUDA activity) and sums the
     device time by kernel; busy share = device kernel time / wall time.
-Finally, for HIV, it runs the port CLI on the dataset with
---profile-dir, which checks that the pipeline's torch.profiler option
-writes its trace.
 Prints one JSON object as the last line (and writes it to --out).
 Needs a CUDA card; on a machine without one it exits non-zero.
 """
@@ -85,6 +83,7 @@ def main(argv=None) -> int:
     from vstrains_tpu_torch.core.fastq import (ReadPairBatch, _pack,
                                                load_read_pairs)
     from vstrains_tpu_torch.ops import pe_infer as P
+    from vstrains_tpu_torch.utils import tracing
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -162,8 +161,8 @@ def main(argv=None) -> int:
         # that launched them report the same time again
         if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
             continue
-        if evt.key.startswith("sparse."):
-            continue  # a host range's GPU span, not a kernel
+        if evt.key.startswith("pe."):
+            continue  # a host span's GPU range, not a kernel
         dt = _device_time_us(evt)
         if dt > 0:
             rows.append({"name": evt.key[:90], "count": evt.count,
@@ -174,17 +173,11 @@ def main(argv=None) -> int:
     rec["device_busy_s"] = busy
     rec["device_busy_share"] = busy / prof_wall if prof_wall else None
     rec["device_time_by_kernel"] = rows[:25]
-    host = {}
-    for evt in prof.key_averages():
-        if (evt.key.startswith("sparse.")
-                and str(getattr(evt, "device_type", "")).endswith("CPU")):
-            host[evt.key] = {"count": evt.count,
-                             "cpu_s": evt.cpu_time_total / 1e6}
-    if host:
-        rec["sparse_host_ranges"] = host
-    rc = 0
-    if not args.r50k:
-        rc = _cli_trace(rec, work, data, args.batch_size)
+    spans = tracing.profiled()
+    rec["engine_spans"] = {
+        name: {"count": sum(1 for s in spans["spans"] if s[0] == name),
+               "s": ns * 1e-9}
+        for name, ns in sorted(spans["span_ns"].items())}
     for x in rows[:25]:
         print(f"{x['device_ms']:10.3f} ms  x{x['count']:<5d} {x['name']}")
     line = json.dumps(rec)
@@ -194,31 +187,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as fh:
             fh.write(line + "\n")
     print(line)
-    return rc
-
-
-def _cli_trace(rec: dict, work: str, data: str, batch_size: int) -> int:
-    """The port CLI with --profile-dir: 0 when its trace was written."""
-    from vstrains_tpu_torch import cli
-    trace_dir = os.path.join(work, "trace")
-    out_dir = os.path.join(work, "cli_out")
-    import shutil
-    shutil.rmtree(out_dir, ignore_errors=True)
-    rc = cli.main(["-a", "spades", "-g", os.path.join(
-        data, "assembly_graph_after_simplification.gfa"),
-        "-p", os.path.join(data, "contigs.paths"),
-        "-fwd", os.path.join(data, "reads_1.fastq"),
-        "-rve", os.path.join(data, "reads_2.fastq"), "-o", out_dir,
-        "--pe-batch-size", str(batch_size), "--device", "cuda",
-        "--profile-dir", trace_dir])
-    trace = os.path.join(trace_dir, "pe_inference.trace.json")
-    rec["cli_rc"] = rc
-    rec["cli_trace_bytes"] = (os.path.getsize(trace)
-                              if os.path.exists(trace) else None)
-    with open(os.path.join(out_dir, "timings.json")) as fh:
-        rec["cli_stages_profiled_s"] = {
-            s["stage"]: s["seconds"] for s in json.load(fh)["stages"]}
-    return 0 if rc == 0 and rec["cli_trace_bytes"] else 1
+    return 0
 
 
 if __name__ == "__main__":

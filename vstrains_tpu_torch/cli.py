@@ -65,8 +65,6 @@ def build_parser() -> argparse.ArgumentParser:
                         default=False,
                         help="resume from the last completed stage "
                              "checkpoint in the output directory")
-    parser.add_argument("--profile-dir", dest="profile_dir", default=None,
-                        type=str, help=argparse.SUPPRESS)
     parser.add_argument("--device", dest="device", default="cuda",
                         choices=["cuda", "cpu"],
                         help="where the PE engine and device passes run; "

@@ -37,17 +37,19 @@ import torch
 
 from vstrains_tpu_torch.core.seq import (HASH_MULT_1, HASH_MULT_2,
                                          prefix_hash_weights)
+from vstrains_tpu_torch.utils import tracing
 
 INF = 2**31 - 1
 _M32 = 0xFFFFFFFF
 
-# kernel name -> launches since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"window_hashes": 0, "stats_accum": 0,
-                            "pair_counts": 0, "sort_rows": 0, "dup_scan": 0,
-                            "dup_stats": 0, "sort_cols": 0}
+# kernel name -> launches since the last reset_launches(): the counter
+# group "launches" of the program's registry (utils/tracing.py)
+LAUNCHES: Dict[str, int] = tracing.counter_group("launches", {
+    "window_hashes": 0, "stats_accum": 0, "pair_counts": 0, "sort_rows": 0,
+    "dup_scan": 0, "dup_stats": 0, "sort_cols": 0})
 # sort_rows' launches since the last reset_launches(), by padded row width
 # (which says the branch: the one-block network up to SORT_NET_MAX)
-SORT_ROWS_WIDTHS: Dict[int, int] = {}
+SORT_ROWS_WIDTHS: Dict[int, int] = tracing.counter_group("sort_rows_widths")
 
 # what chip_smoke.py reports for each kernel
 KERNELS = [

@@ -60,13 +60,13 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from vstrains_tpu_torch.core.fastq import ReadPairBatch
 from vstrains_tpu_torch.core.seq import (encode_seq, prefix_hash_weights,
                                          revcomp_codes, window_hashes_np)
 from vstrains_tpu_torch.device import resolve_device
 from vstrains_tpu_torch.ops import cuda_kernels as ck
+from vstrains_tpu_torch.utils.tracing import count, span
 
 _LOG = logging.getLogger(__name__)
 
@@ -164,7 +164,12 @@ def build_kmer_table(seqs: Sequence[str], split_len: int,
     windows (uint32, uint32, bool: core/seq.window_hashes_np's contract;
     parallel/mesh.build_table_auto passes the sequence-parallel step),
     the others by the host build; the table is the host build's, bit for
-    bit."""
+    bit. Runs in the span `pe.table_build`."""
+    with span("pe.table_build"):
+        return _build_kmer_table(seqs, split_len, pad_to_bucket, long_hash)
+
+
+def _build_kmer_table(seqs, split_len, pad_to_bucket, long_hash):
     h1s: List[np.ndarray] = []
     h2s: List[np.ndarray] = []
     nodes: List[np.ndarray] = []
@@ -525,23 +530,32 @@ class _DeviceTable:
     scan_depth: int = 1
 
 
+def _upload(arr: np.ndarray, dev) -> torch.Tensor:
+    """A host array on `dev`; its bytes count as the engine's H2D
+    (`pe.h2d_bytes`, on any device)."""
+    count("pe.h2d_bytes", arr.nbytes)
+    return torch.from_numpy(arr).to(dev)
+
+
 def _device_table(table: KmerTable, probe: str, dev) -> _DeviceTable:
-    """Upload what `probe` reads of a host table."""
-    tab = _DeviceTable(probe, torch.from_numpy(table.h1_biased).to(dev),
-                       torch.from_numpy(table.seq_lens).to(dev),
-                       table.split_len, table.num_nodes, table.max_dup)
-    if probe == "sortfill":
-        tab.node_bits = _sortfill_node_bits(table.num_nodes)
-        tab.pays = torch.from_numpy(
-            _build_sortfill_payloads(table, tab.node_bits)).to(dev)
-        tab.depth = tab.pays.shape[1]
+    """Upload what `probe` reads of a host table (the span
+    `pe.table_upload`: the host payloads or record, and the H2D)."""
+    with span("pe.table_upload"):
+        tab = _DeviceTable(probe, _upload(table.h1_biased, dev),
+                           _upload(table.seq_lens, dev),
+                           table.split_len, table.num_nodes, table.max_dup)
+        if probe == "sortfill":
+            tab.node_bits = _sortfill_node_bits(table.num_nodes)
+            tab.pays = _upload(_build_sortfill_payloads(table, tab.node_bits),
+                               dev)
+            tab.depth = tab.pays.shape[1]
+            return tab
+        tab.rec = ck.table_record(tab.h1, _upload(table.h2, dev),
+                                  _upload(table.node, dev))
+        if probe == "lookup":
+            starts, tab.shift, tab.scan_depth = _bucket_index(table)
+            tab.bstarts = _upload(starts, dev)
         return tab
-    tab.rec = ck.table_record(tab.h1, torch.from_numpy(table.h2).to(dev),
-                              torch.from_numpy(table.node).to(dev))
-    if probe == "lookup":
-        starts, tab.shift, tab.scan_depth = _bucket_index(table)
-        tab.bstarts = torch.from_numpy(starts).to(dev)
-    return tab
 
 
 def _classic_lo(q1, tab: _DeviceTable) -> torch.Tensor:
@@ -582,16 +596,37 @@ def _batch_core(q1, h2, valid, lens, tab: _DeviceTable, acc_nm, acc_sm):
     _batch_pairs(cnt, kmin, lens, tab, acc_nm, acc_sm)
 
 
-def _hash_batch(kind: str, payload, T: int, split_len: int, dev):
-    """Window hashes of one batch that _wire_batches yielded, on `dev`:
-    (q1, h2, valid, lens) of its stacked (2B, K) end-batch."""
+def _upload_batch(kind: str, payload, dev) -> tuple:
+    """One batch that _wire_batches yielded, on `dev`: (wire,) or (codes,
+    lens) of its stacked end-batch. A byte batch is stacked in the span
+    `pe.pack`; the H2D runs in `pe.upload`."""
     if kind == "wire":
-        wire = torch.from_numpy(payload).to(dev)
+        host = (payload,)
+    else:
+        with span("pe.pack"):
+            host = _stack_ends_np(*payload)
+    with span("pe.upload"):
+        count("pe.batches")
+        return tuple(_upload(x, dev) for x in host)
+
+
+def _batch_hashes(kind: str, feed: tuple, T: int, split_len: int):
+    """Window hashes of an uploaded batch: (q1, h2, valid, lens) of its
+    stacked (2B, K) end-batch."""
+    if kind == "wire":
+        wire, = feed
         return (*ck.window_hashes_wire(wire, T, split_len),
                 ck.wire_lens(wire))
-    codes, lens = (torch.from_numpy(x).to(dev)
-                   for x in _stack_ends_np(*payload))
+    codes, lens = feed
     return (*ck.window_hashes_bytes(codes, lens, split_len), lens)
+
+
+def _hash_batch(kind: str, payload, T: int, split_len: int, dev):
+    """Window hashes of one batch that _wire_batches yielded, on `dev`
+    (the hashes' launch in the span `pe.queue`)."""
+    feed = _upload_batch(kind, payload, dev)
+    with span("pe.queue"):
+        return _batch_hashes(kind, feed, T, split_len)
 
 
 # --------------------------------------------------------------------------
@@ -966,7 +1001,7 @@ def _wire_batches(reads: ReadPairBatch, batch_size: int,
     non-ACGT code or reads too long for u16 lengths. Packing runs per
     batch — the C++ packer (native.wire_pack_native, check fused in) when
     available, numpy otherwise — so the host packs batch i+1 while the
-    device runs batch i."""
+    device runs batch i. Each batch is packed in the span `pe.pack`."""
     B = reads.num_pairs
     T = max(reads.fwd_codes.shape[1], reads.rve_codes.shape[1])
     wire_ok = T < 65536 and not force_bytes
@@ -976,30 +1011,29 @@ def _wire_batches(reads: ReadPairBatch, batch_size: int,
         lib = _native.get_lib()
         native_ok = lib is not None and hasattr(lib, "wire_pack")
     for s in range(0, B, batch_size):
-        e = min(s + batch_size, B)
-        pad = batch_size - (e - s)
-        fc = reads.fwd_codes[s:e]
-        rc = reads.rve_codes[s:e]
-        fl = reads.fwd_len[s:e]
-        rl = reads.rve_len[s:e]
-        if pad:
-            # zero-length padding reads contribute nothing
-            fc = np.pad(fc, ((0, pad), (0, 0)), constant_values=255)
-            rc = np.pad(rc, ((0, pad), (0, 0)), constant_values=255)
-            fl = np.pad(fl, (0, pad))
-            rl = np.pad(rl, (0, pad))
-        if wire_ok:
-            if native_ok:
-                wire = _native.wire_pack_native(fc, fl, rc, rl, T)
-            elif not (_has_bad_in_read(fc, fl)
-                      or _has_bad_in_read(rc, rl)):
-                wire = _pack_wire_np(fc, fl, rc, rl, T)
-            else:
-                wire = None
-            if wire is not None:
-                yield ("wire", wire)
-                continue
-        yield ("bytes", (fc, fl, rc, rl))
+        with span("pe.pack"):
+            e = min(s + batch_size, B)
+            pad = batch_size - (e - s)
+            fc = reads.fwd_codes[s:e]
+            rc = reads.rve_codes[s:e]
+            fl = reads.fwd_len[s:e]
+            rl = reads.rve_len[s:e]
+            if pad:
+                # zero-length padding reads contribute nothing
+                fc = np.pad(fc, ((0, pad), (0, 0)), constant_values=255)
+                rc = np.pad(rc, ((0, pad), (0, 0)), constant_values=255)
+                fl = np.pad(fl, (0, pad))
+                rl = np.pad(rl, (0, pad))
+            wire = None
+            if wire_ok:
+                if native_ok:
+                    wire = _native.wire_pack_native(fc, fl, rc, rl, T)
+                elif not (_has_bad_in_read(fc, fl)
+                          or _has_bad_in_read(rc, rl)):
+                    wire = _pack_wire_np(fc, fl, rc, rl, T)
+            item = (("bytes", (fc, fl, rc, rl)) if wire is None
+                    else ("wire", wire))
+        yield item
 
 
 def _length_buckets(reads: ReadPairBatch, split_len: int,
@@ -1186,26 +1220,31 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
 
     # mixed-length libraries: feed per-width bucket sub-batches so short
     # reads don't pay the widest read's window count
-    buckets = _length_buckets(reads, split_len, batch_size)
-    if buckets is None:
-        parts = [reads]
-    else:
-        logger.info("length buckets (width, pairs): %s",
-                    [(wd, len(ix)) for wd, ix in buckets])
-        parts = [ReadPairBatch(
-            np.ascontiguousarray(reads.fwd_codes[ix, :wd]),
-            reads.fwd_len[ix],
-            np.ascontiguousarray(reads.rve_codes[ix, :wd]),
-            reads.rve_len[ix], 0, 0, len(ix)) for wd, ix in buckets]
+    with span("pe.pack"):
+        buckets = _length_buckets(reads, split_len, batch_size)
+        if buckets is None:
+            parts = [reads]
+        else:
+            logger.info("length buckets (width, pairs): %s",
+                        [(wd, len(ix)) for wd, ix in buckets])
+            parts = [ReadPairBatch(
+                np.ascontiguousarray(reads.fwd_codes[ix, :wd]),
+                reads.fwd_len[ix],
+                np.ascontiguousarray(reads.rve_codes[ix, :wd]),
+                reads.rve_len[ix], 0, 0, len(ix)) for wd, ix in buckets]
 
     for p in parts:
         Tp = max(p.fwd_codes.shape[1], p.rve_codes.shape[1])
         for kind, payload in _wire_batches(p, batch_size):
-            q1, h2, valid, lens = _hash_batch(kind, payload, Tp, split_len,
-                                              dev)
-            _batch_core(q1, h2, valid, lens, tab, acc_nm, acc_sm)
+            feed = _upload_batch(kind, payload, dev)
+            with span("pe.queue"):
+                _batch_core(*_batch_hashes(kind, feed, Tp, split_len), tab,
+                            acc_nm, acc_sm)
 
-    return PEResult(list(ids), acc_nm.cpu().numpy(), acc_sm.cpu().numpy(),
+    with span("pe.drain"):
+        node_mat, short_mat = acc_nm.cpu().numpy(), acc_sm.cpu().numpy()
+    count("pe.d2h_bytes", node_mat.nbytes + short_mat.nbytes)
+    return PEResult(list(ids), node_mat, short_mat,
                     reads.n_reads, reads.short_reads, reads.used_reads)
 
 
@@ -1229,10 +1268,11 @@ def _infer_pe_links_sparse(ids, table: KmerTable, tab: _DeviceTable,
                     "batch=%d", N, cap, table.max_dup, batch_size)
 
         def core(kind, payload):
-            q1, h2, valid, lens = _hash_batch(kind, payload, T,
-                                              tab.split_len, dev)
-            out, ovf, _ = _sparse_core(q1, h2, valid, lens, tab, cap,
-                                       cap_c)
+            feed = _upload_batch(kind, payload, dev)
+            with span("pe.queue"):
+                out, ovf, _ = _sparse_core(
+                    *_batch_hashes(kind, feed, T, tab.split_len), tab, cap,
+                    cap_c)
             return out, ovf
 
         batches = _wire_batches(reads, batch_size,
@@ -1287,34 +1327,41 @@ def _sparse_run(batches, core, num_nodes: int, dev, expand: bool = True):
     Batch i's result is copied to the host behind its own kernels and
     read after batch i+1 is queued, so the device always has the next
     batch while the host expands COO keys, and no batch syncs the stream
-    on its own."""
+    on its own.
+
+    Spans besides those of the batches and `core` (pe.pack, pe.upload,
+    pe.queue): pe.queue around the queued D2H, and pe.drain around each
+    pulled batch (pe.wait, the host blocked on the device, then pe.coo,
+    its host COO expansion) and around the final merge."""
     pe_k, pe_c, st_k, st_c = [], [], [], []
     on_cuda = dev.type == "cuda"
 
     def queue(kind, payload):
         out, ovf = core(kind, payload)
+        count("pe.d2h_bytes", out.nbytes + ovf.nbytes)
         if not on_cuda:
             return out, ovf, None
-        out_h = torch.empty(out.shape, dtype=out.dtype, device="cpu",
-                            pin_memory=True)
-        ovf_h = torch.empty((), dtype=torch.bool, device="cpu",
-                            pin_memory=True)
-        out_h.copy_(out, non_blocking=True)
-        ovf_h.copy_(ovf, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(dev))
+        with span("pe.queue"):
+            out_h = torch.empty(out.shape, dtype=out.dtype, device="cpu",
+                                pin_memory=True)
+            ovf_h = torch.empty((), dtype=torch.bool, device="cpu",
+                                pin_memory=True)
+            out_h.copy_(out, non_blocking=True)
+            ovf_h.copy_(ovf, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
         return out_h, ovf_h, done
 
     def drain(item) -> bool:
         out_h, ovf_h, done = item
-        if done is not None:
-            with record_function("sparse.wait"):
+        with span("pe.wait"):
+            if done is not None:
                 done.synchronize()
         if bool(ovf_h):
             return False
         if not expand:
             return True
-        with record_function("sparse.coo"):
+        with span("pe.coo"):
             sn = out_h.numpy()
             b = sn.shape[0] // 2
             pe, st = _sparse_pairs_np(sn[:b], sn[b:], num_nodes)
@@ -1324,21 +1371,20 @@ def _sparse_run(batches, core, num_nodes: int, dev, expand: bool = True):
                 cl.append(c)
         return True
 
-    # profiler ranges (torch.profiler CPU events; near free when no
-    # profiler runs): sparse.queue = host packing, H2D and kernel
-    # launches of a batch; sparse.wait = the host blocked on the device;
-    # sparse.coo = host COO expansion of a pulled batch
     pending = None
     while True:
-        with record_function("sparse.queue"):
-            nxt = next(batches, None)
-            item = None if nxt is None else queue(*nxt)
-        if pending is not None and not drain(pending):
-            return None
+        nxt = next(batches, None)
+        item = None if nxt is None else queue(*nxt)
+        if pending is not None:
+            with span("pe.drain"):
+                ok = drain(pending)
+            if not ok:
+                return None
         if item is None:
             break
         pending = item
-    return (*_merge_coo(pe_k, pe_c), *_merge_coo(st_k, st_c))
+    with span("pe.drain"), span("pe.coo"):
+        return (*_merge_coo(pe_k, pe_c), *_merge_coo(st_k, st_c))
 
 
 # --------------------------------------------------------------------------

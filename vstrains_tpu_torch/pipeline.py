@@ -25,7 +25,9 @@ apart (parallel/components.py: in `args.component_workers` spawned
 processes, or round-robin over the ranks of an initialized
 torch.distributed world), each on the run's device.
 `args.resume` restarts from the most advanced completed checkpoint.
-Per-stage wall times land in <out>/timings.json (utils/tracing.py).
+Per-stage wall times land in <out>/timings.json (utils/tracing.py); the
+PE stage also logs its spans and counters (the table build's and the
+engine's, from the program's always-on totals) after its engine line.
 
 On a CUDA device, when the PE stage will run, the CUDA kernel library is
 built and loaded on a background thread from the start of the run
@@ -76,7 +78,7 @@ from vstrains_tpu_torch.ops.pe_infer import (build_kmer_table,
 from vstrains_tpu_torch.parallel.collectives import world_size
 from vstrains_tpu_torch.parallel.mesh import build_table_auto
 from vstrains_tpu_torch.utils import checkpoint as ckpt
-from vstrains_tpu_torch.utils.tracing import StageTimer
+from vstrains_tpu_torch.utils import tracing
 
 _LOG = logging.getLogger(__name__)
 
@@ -96,7 +98,7 @@ def _done(resume_from, stage: str) -> bool:
 def run(args, logger: logging.Logger = None) -> int:
     """args needs: gfa_file, path_file, fwd, rve, output_dir, min_cov,
     min_len, dev (mirrors the reference CLI namespace); optional: device,
-    resume, pe_batch_size, pe_files, profile_dir, per_component,
+    resume, pe_batch_size, pe_files, per_component,
     component_workers."""
     logger = logger or _LOG
     try:
@@ -115,8 +117,7 @@ def run(args, logger: logging.Logger = None) -> int:
 def _run(args, logger: logging.Logger, device: torch.device, resume_from,
          kernels) -> int:
     temp_dir = args.output_dir
-    timer = StageTimer(profile_dir=getattr(args, "profile_dir", None),
-                       device=device)
+    timer = tracing.StageTimer(device=device)
     logger.info("vstrains-tpu-torch pipeline started on %s", device)
     t0 = time.time()
 
@@ -226,8 +227,8 @@ def _run(args, logger: logging.Logger, device: torch.device, resume_from,
         logger.info("resumed stage pe_links (%d pairs)", len(pe_info))
     else:
         logger.info("[stage] PE link inference")
-        with timer.stage("pe_inference", logger), \
-                timer.device_trace("pe_inference"):
+        with timer.stage("pe_inference", logger):
+            traced_from = tracing.totals()
             ids = list(view1.nodes.keys())
             seqs = [view1.nodes[i].seq for i in ids]
             # one process: the host table build overlaps FASTQ loading on
@@ -267,6 +268,8 @@ def _run(args, logger: logging.Logger, device: torch.device, resume_from,
                 logger=logger, device=device)
             logger.info("PE engine: %d pairs in %.4f s", reads.num_pairs,
                         time.time() - t_engine)
+            logger.info("PE spans and counters (table build and engine): "
+                        "%s", tracing.since(traced_from))
             # aln file format: the reference's N^2-line files degenerate
             # to their nonzero lines on load (docs/DIVERGENCES.md #17),
             # so 'auto' switches to the sparse writer above 5,000 nodes
