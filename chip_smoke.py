@@ -2,6 +2,7 @@
 """GPU smoke run of the PyTorch port (`vstrains_tpu_torch`) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --pinned-drain     # phase 5a alone
 
 Phases (one line each; any failure raises and the script exits non-zero
 without the final result line):
@@ -46,6 +47,12 @@ without the final result line):
      the card (graph_is_dag_device against the host DFS before and after
      one back edge; edge_flow_device on 20,000 edges against the float64
      host path, rtol 1e-6);
+ 5a. the dense engine's drain into page-locked host memory, on 400
+     random nodes: the CUDA engine's node_mat and short_mat page-locked
+     and equal to the CPU engine's, a second call's arrays in the blocks
+     the first call's left, `pe.d2h_pinned_bytes` equal to
+     `pe.d2h_bytes`; the drain of two int64 [3,056, 3,056] accumulators
+     timed against the pageable copies it replaced;
   6. the same HIV dataset through the port CLI with --pe-batch-size
      262144, which the dense/sparse memory rule routes to the sparse PE
      engine: outputs byte-equal to the same JAX record (the two engines
@@ -660,6 +667,113 @@ def pair_library(f, r) -> list:
                     [G[:N, N:2 * N],
                      torch.triu(G[:N, :N] + G[N:2 * N, N:2 * N])], want)
     return calls
+
+
+def _drain_inputs(seed: int, n_nodes: int, n_pairs: int, read_len: int):
+    """Random nodes and read pairs drawn from them, both strands."""
+    import numpy as np
+    from vstrains_tpu_torch.core.fastq import ReadPairBatch, _pack
+    rng = np.random.RandomState(seed)
+    bases = np.frombuffer(b"ACGT", dtype=np.uint8)
+    refs = [bases[rng.randint(0, 4, n)].tobytes().decode()
+            for n in rng.randint(read_len + 20, 600, n_nodes)]
+    comp = str.maketrans("ACGT", "TGCA")
+
+    def draw():
+        ref = refs[rng.randint(n_nodes)]
+        p = rng.randint(0, len(ref) - read_len)
+        read = ref[p: p + read_len]
+        return read if rng.rand() < 0.5 else read.translate(comp)[::-1]
+
+    pairs = [(draw().encode(), draw().encode()) for _ in range(n_pairs)]
+    fc, fl = _pack([f for f, _ in pairs], pad_to_multiple=32)
+    rc, rl = _pack([r for _, r in pairs], pad_to_multiple=32)
+    return ([str(i) for i in range(n_nodes)], refs,
+            ReadPairBatch(fc, fl, rc, rl, 0, 0, n_pairs))
+
+
+def pinned_drain_check() -> dict:
+    """Phase 5a: the dense engine's drain into page-locked host memory.
+    On 400 random nodes and 20,000 pairs (k = 21, batch 4,096) the CUDA
+    engine's node_mat and short_mat must be page-locked
+    (`torch.from_numpy(a).is_pinned()`), C-contiguous, writable and equal
+    to the CPU engine's; with the first result dropped, a second call's
+    arrays must lie in the same two blocks (their `ctypes.data`), and each
+    call's `pe.d2h_pinned_bytes` must equal its `pe.d2h_bytes`. Then, at
+    zikv15's N = 3,056, the drain of two zero int64 [N, N] accumulators
+    timed against the pageable `.cpu().numpy()` pair it replaced, each
+    while holding its three latest results (as the benchmark's loop
+    does)."""
+    import numpy as np
+    import torch
+    from vstrains_tpu_torch.ops import pe_infer as TP
+    from vstrains_tpu_torch.utils import tracing
+
+    ids, refs, reads = _drain_inputs(11, 400, 20_000, 100)
+    kw = dict(batch_size=4096, stats_mode="dense")
+    ref = TP.infer_pe_links(ids, refs, reads, 21, device="cpu", **kw)
+
+    def run():
+        before = tracing.totals()
+        res = TP.infer_pe_links(ids, refs, reads, 21, device="cuda", **kw)
+        got = {k: v - before["counters"].get(k, 0)
+               for k, v in tracing.totals()["counters"].items()}
+        drain_s = (tracing.totals()["span_ns"]["pe.drain"]
+                   - before["span_ns"].get("pe.drain", 0)) * 1e-9
+        for name in ("node_mat", "short_mat"):
+            a = getattr(res, name)
+            if not torch.from_numpy(a).is_pinned():
+                raise AssertionError(f"pinned drain: {name} is pageable")
+            if not (a.dtype == np.int64 and a.flags.c_contiguous
+                    and a.flags.writeable):
+                raise AssertionError(f"pinned drain: {name} {a.dtype} "
+                                     f"{a.flags}")
+            np.testing.assert_array_equal(a, getattr(ref, name))
+        if not got["pe.d2h_pinned_bytes"] == got["pe.d2h_bytes"] \
+                == 2 * len(ids) ** 2 * 8:
+            raise AssertionError(f"pinned drain: counters {got}")
+        return res, drain_s
+
+    res, first_s = run()
+    blocks = {res.node_mat.ctypes.data, res.short_mat.ctypes.data}
+    del res
+    res, second_s = run()
+    again = {res.node_mat.ctypes.data, res.short_mat.ctypes.data}
+    if again != blocks:
+        raise AssertionError(f"pinned drain: blocks not reused {blocks} -> "
+                             f"{again}")
+    links = int(ref.node_mat.sum()), int(ref.short_mat.sum())
+    del res, ref
+
+    N = 3056
+    accs = [torch.zeros((N, N), dtype=torch.int64, device="cuda")
+            for _ in range(2)]
+
+    def pageable():
+        return tuple(a.cpu().numpy() for a in accs)
+
+    def timed(drain, reps=12):
+        held, ms = [], []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            held.append(drain())
+            ms.append((time.perf_counter() - t0) * 1e3)
+            held = held[-3:]
+        return ms
+
+    pinned_ms = timed(lambda: TP._drain_dense(*accs))
+    pageable_ms = timed(pageable)
+    out = {"links": links, "first_drain_ms": round(first_s * 1e3, 3),
+           "second_drain_ms": round(second_s * 1e3, 3),
+           "zikv_n": N, "pinned_ms": [round(x, 2) for x in pinned_ms],
+           "pageable_ms": [round(x, 2) for x in pageable_ms],
+           "pinned_median_ms": round(float(np.median(pinned_ms)), 3),
+           "pageable_median_ms": round(float(np.median(pageable_ms)), 3)}
+    say("phase 5a (dense drain, page-locked): arrays pinned and equal to "
+        "the CPU engine's, blocks reused, pe.d2h_pinned_bytes = "
+        f"pe.d2h_bytes; {json.dumps(out)}")
+    return out
 
 
 def count_launches(name: str, run, expect_on, expect_off=()) -> dict:
@@ -2412,6 +2526,9 @@ def main() -> int:
     say(f"hiv: outputs byte-equal to the JAX record; NGA50 per strain "
         f"{json.dumps(nga)}")
 
+    # 5a. the dense drain into page-locked host blocks
+    pinned_drain_check()
+
     # 5b. the same graph and reads in every probe mode; the graph passes
     view, hiv_dup = hiv_classic_phase(hiv, hiv_data, hiv_out)
     graph_phase(view)
@@ -2493,6 +2610,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pinned-drain"]:
+        pinned_drain_check()
+        sys.exit(0)
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                            sys.argv[5]))

@@ -270,3 +270,42 @@ def test_cuda_device_without_cuda_raises():
         pytest.skip("a CUDA device exists here")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TP.infer_pe_links(["a"], ["ACGT" * 10], None, 11, device="cuda")
+
+
+def test_drain_dense_on_cpu_returns_the_accumulators():
+    """The dense drain on CPU accumulators: int64 [N, N] host arrays,
+    C-contiguous and writable, equal to what was accumulated."""
+    gen = torch.Generator().manual_seed(3)
+    accs = [torch.randint(0, 1000, (9, 9), dtype=torch.int64, generator=gen)
+            for _ in range(2)]
+    want = [a.clone() for a in accs]
+    out = TP._drain_dense(*accs)
+    assert len(out) == 2
+    for got, ref in zip(out, want):
+        assert isinstance(got, np.ndarray)
+        assert got.dtype == np.int64 and got.shape == (9, 9)
+        assert got.flags.c_contiguous and got.flags.writeable
+        np.testing.assert_array_equal(got, ref.numpy())
+
+
+def test_dense_drain_counts_no_pinned_bytes_on_cpu():
+    """infer_pe_links(device="cpu") counts its 2·N²·8 result bytes as the
+    engine's D2H and none of them as page-locked."""
+    from vstrains_tpu_torch.utils import tracing
+
+    rng = np.random.RandomState(7)
+    k = 13
+    refs = _random_refs(rng, 5, [80, 90, 100, 110, 120])
+    fwd, rve = _sample_reads(rng, refs, 60, 30, k)
+    batch = _make_batch(fwd, rve, k + 1)
+    before = tracing.totals()
+    res = _port([str(i) for i in range(5)], refs, batch, k, batch_size=16,
+                stats_mode="dense")
+    got = {key: v - before["counters"].get(key, 0)
+           for key, v in tracing.totals()["counters"].items()}
+    N = len(refs)
+    assert got["pe.d2h_bytes"] == 2 * N * N * 8
+    assert got.get("pe.d2h_pinned_bytes", 0) == 0
+    assert "pe.d2h_pinned_bytes" not in tracing.since(before)
+    assert f"pe.d2h_bytes {2 * N * N * 8}" in tracing.since(before)
+    assert res.node_mat.flags.writeable and res.short_mat.flags.writeable
