@@ -1329,7 +1329,9 @@ def _sparse_batch_clamp(batch_size: int, T: int, split_len: int,
 
 def _sparse_retry(one_pass, cap: int, cap_c: int, logger: logging.Logger):
     """one_pass(cap, cap_c) -> the merged COO, or None on a cap overflow;
-    an overflow retries the pass at 4x the caps, up to 256."""
+    an overflow retries the pass at 4x the caps, up to 256. Each retry adds
+    one to the counter `pe.sparse_retries` (named, at 0, on every call)."""
+    count("pe.sparse_retries", 0)
     while True:
         coo = one_pass(cap, cap_c)
         if coo is not None:
@@ -1338,6 +1340,7 @@ def _sparse_retry(one_pass, cap: int, cap_c: int, logger: logging.Logger):
             raise RuntimeError(
                 "a read saturated more than 256 nodes; graph too "
                 "repetitive for the sparse PE path")
+        count("pe.sparse_retries")
         logger.info("sparse caps %d/%d overflowed; retrying with %d/%d",
                     cap, cap_c, cap * 4, cap_c * 4)
         cap, cap_c = cap * 4, cap_c * 4
@@ -1358,7 +1361,9 @@ def _sparse_run(batches, core, num_nodes: int, dev, expand: bool = True):
     Spans besides those of the batches and `core` (pe.pack, pe.upload,
     pe.queue): pe.queue around the queued D2H, and pe.drain around each
     pulled batch (pe.wait, the host blocked on the device, then pe.coo,
-    its host COO expansion) and around the final merge."""
+    its host COO expansion) and around the final merge. The counter
+    `pe.coo_keys` adds the pair and short keys each batch expands on the
+    host, before they are made unique."""
     pe_k, pe_c, st_k, st_c = [], [], [], []
     on_cuda = dev.type == "cuda"
 
@@ -1391,6 +1396,7 @@ def _sparse_run(batches, core, num_nodes: int, dev, expand: bool = True):
             sn = out_h.numpy()
             b = sn.shape[0] // 2
             pe, st = _sparse_pairs_np(sn[:b], sn[b:], num_nodes)
+            count("pe.coo_keys", pe.size + st.size)
             for arr, kl, cl in ((pe, pe_k, pe_c), (st, st_k, st_c)):
                 u, c = np.unique(arr, return_counts=True)
                 kl.append(u)

@@ -143,13 +143,15 @@ def profiled() -> dict:
 
 def since(before: dict) -> str:
     """One line of what the always-on totals gained since `before` (a
-    `totals()`): span seconds, then counters, then each counter group."""
+    `totals()`): span seconds, then counters, then each counter group. A
+    counter first named since `before` is printed even at 0."""
     now = totals()
     parts = []
     for key, fmt in (("span_ns", lambda v: f"{v * 1e-9:.4f} s"),
                      ("counters", str)):
         gained = {k: v - before[key].get(k, 0) for k, v in now[key].items()}
-        items = [f"{k} {fmt(v)}" for k, v in sorted(gained.items()) if v > 0]
+        items = [f"{k} {fmt(v)}" for k, v in sorted(gained.items())
+                 if v > 0 or (key == "counters" and k not in before[key])]
         parts.append(", ".join(items) or "none")
     for g in _GROUPS:
         gained = {k: v - before.get(g, {}).get(k, 0)
