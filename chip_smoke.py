@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --pinned-drain     # phase 5a alone
+    python3 chip_smoke.py --coo-accum        # phase 6a alone
 
 Phases (one line each; any failure raises and the script exits non-zero
 without the final result line):
@@ -60,6 +61,14 @@ without the final result line):
      stats_accum and pair_counts not; then window_hashes and sort_rows
      against their plain versions at the shapes that run gave them (its
      batch and depth read from its log, its first batch of reads);
+ 6a. the sparse engine's link keys counted on the card (`coo_accum`,
+     csrc/coo_accum.cu): kernel and the driver's finish against the
+     plain version (the host COO) on a cut hcmv3 run's lists (also
+     across a rehash) and on synthetic skewed lists at 2B = 32,768 x cap
+     16; the engine on that dataset against the benchmark's plain
+     reference at the tables' first size and from 4,096 slots (growth
+     forced); each batch shape timed beside its bound (distinct keys at
+     the card's measured L2 atomic rate) and the plain version's time;
   7. the N = 50,000 cell (`bench.synth_workload`, 50,000 nodes of 200 bp,
      1,048,576 pairs of 150 bp, seed 0) through the engine entry point
      `infer_pe_links(stats_mode="auto")`: a checked run on the first
@@ -776,6 +785,202 @@ def pinned_drain_check() -> dict:
     return out
 
 
+def _coo_skewed_lists(rng, B: int, cap: int, N: int):
+    """Synthetic (2B, cap) saturated lists at the sparse engine's shape:
+    each read end a run of consecutive node ids from a position along a
+    graph of N nodes, its mate's near it; positions from a Zipf law, so a
+    few regions hold most pairs and keys repeat; run lengths geometric
+    (mean ~3), 1 in 64 full at cap."""
+    import numpy as np
+    pos = (rng.zipf(1.3, B) * 7919) % N
+    base = np.concatenate([pos, pos + rng.randint(1, 40, B)])
+    base = np.minimum(base, N - cap)
+    n = np.minimum(rng.geometric(0.3, 2 * B), cap)
+    n[rng.rand(2 * B) < 1 / 64] = cap
+    col = np.arange(cap)[None, :]
+    return np.where(col < n[:, None], base[:, None] + col,
+                    -1).astype(np.int32)
+
+
+def l2_atomic_rate() -> float:
+    """int64 atomic adds a second into an L2-resident table, the
+    yardstick of coo_accum's bound: torch's index_add_ (one atomicAdd an
+    element) of 2^22 ones at random slots of a 2^20-slot int64 table (8
+    MB), CUDA events."""
+    import torch
+    tab = torch.zeros(2**20, dtype=torch.int64, device="cuda")
+    idx = torch.randint(0, 2**20, (2**22,), device="cuda")
+    ones = torch.ones(2**22, dtype=torch.int64, device="cuda")
+    for _ in range(3):
+        tab.index_add_(0, idx, ones)
+    return 2**22 / (cuda_ms(lambda: tab.index_add_(0, idx, ones), 20)
+                    * 1e-3)
+
+
+NO_LIBRARY_COO = ("none: no PyTorch call counts keys into a table that "
+                  "lives across calls (torch.unique sorts each batch)")
+
+
+def coo_accum_check() -> dict:
+    """Phase 6a (`--coo-accum` runs it alone): the sparse engine's link
+    keys counted on the card. coo_accum and the driver's finish
+    (pe_infer._coo_finish) against the plain version (the host COO), equal
+    entry for entry with equal counters: on the (2B, cap) lists of a cut
+    hcmv3 run (the configuration's genome and graph at 100x, generator
+    seed 1, batch 16,384, its lists from the CUDA engine's own tail), also
+    across a rehash of both tables, and on synthetic lists at 2B = 32,768 x
+    cap 16 with skewed keys. Then the engine on that dataset on the card
+    against the benchmark's plain reference (exact k-mers), once at the
+    tables' first size (no growth) and once from 4,096 slots (growth
+    forced: restarts and rehashes, `pe.coo_table_grows`), both with
+    coo_accum launched. Each batch shape timed: the kernel into tables
+    that hold the pass's keys and into empty ones (CUDA events), beside
+    its bound (the batch's distinct keys, one atomic add each, at the
+    card's measured L2 atomic rate) and the plain version's host
+    time."""
+    import logging
+
+    import numpy as np
+    import torch
+
+    from portbench import data as pdata
+    from portbench.gen import hivsim
+    from portbench.loops import pe_engine_coo
+    from portbench.reference import pe_links
+    from vstrains_tpu_torch.core.fastq import load_read_pairs
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    from vstrains_tpu_torch.ops import pe_infer as TP
+    from vstrains_tpu_torch.utils import tracing
+
+    dev = torch.device("cuda")
+    no = {d: torch.zeros((), dtype=torch.bool, device=d)
+          for d in ("cuda", "cpu")}
+
+    def accumulate(lists, N, d, grow_at_end=False):
+        tables = ck.CooTables(N, d)
+        for out in lists:
+            ck.coo_accum(torch.from_numpy(out).to(d), no[d], tables)
+        if grow_at_end:
+            tables.grow(0)
+            tables.grow(1)
+        stats = tables.stats.tolist()
+        return TP._coo_finish(tables, stats[ck.COO_FILL:ck.COO_FILL + 2]), \
+            stats
+
+    def same(label, lists, N, grow_at_end=False):
+        got, gs = accumulate(lists, N, "cuda", grow_at_end)
+        want, ws = accumulate(lists, N, "cpu", grow_at_end)
+        if gs != ws or not all(np.array_equal(g, w)
+                               for g, w in zip(got, want)):
+            raise AssertionError(f"coo_accum ({label}): differs from the "
+                                 f"plain version: stats {gs} != {ws}")
+        say(f"coo_accum ({label}): equal to plain, {len(lists)} batches, "
+            f"{gs[ck.COO_KEYS]} keys, {gs[ck.COO_FILL]} + "
+            f"{gs[ck.COO_FILL + 1]} distinct")
+        return gs
+
+    rate = l2_atomic_rate()
+    say(f"L2 atomics: {rate / 1e9:.3f} G int64 atomic adds/s (index_add_ "
+        "into an 8 MB table)")
+
+    def timed(label, out, N):
+        d_out = torch.from_numpy(out).to(dev)
+        warm = ck.CooTables(N, dev)
+        ck.coo_accum(d_out, no["cuda"], warm)
+        ms = cuda_ms(lambda: ck.coo_accum(d_out, no["cuda"], warm), 20)
+        fresh = iter([ck.CooTables(N, dev) for _ in range(6)])
+        ms_fresh = cuda_ms(lambda: ck.coo_accum(d_out, no["cuda"],
+                                                next(fresh)), 6)
+        plain_ms = []
+        for _ in range(3):
+            tables = ck.CooTables(N, "cpu")
+            t0 = time.perf_counter()
+            ck.coo_accum_plain(torch.from_numpy(out), no["cpu"], tables)
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+        stats = tables.stats.tolist()
+        distinct = stats[ck.COO_FILL] + stats[ck.COO_FILL + 1]
+        res = {"kernel": "coo_accum", "shape": label, "max_abs_err": 0.0,
+               "ms": ms, "ms_empty_tables": ms_fresh,
+               "plain_ms": float(np.median(plain_ms)),
+               "library_ms": None, "library": NO_LIBRARY_COO,
+               "keys": stats[ck.COO_KEYS], "distinct_keys": distinct,
+               "bound_ms": distinct / rate * 1e3,
+               "bound_by": "L2 atomics",
+               "bound_rate": f"{rate / 1e9:.3f} G int64 atomic adds/s, "
+                             "measured (index_add_)"}
+        say(f"kernel coo_accum ({label}): {ms:.4f} ms into tables holding "
+            f"its keys, {ms_fresh:.4f} ms into empty ones; plain (host) "
+            f"{res['plain_ms']:.2f} ms; {stats[ck.COO_KEYS]} keys, "
+            f"{distinct} distinct; bound {res['bound_ms']:.4f} ms (L2 "
+            f"atomics), {100 * res['bound_ms'] / ms:.1f}% of it")
+        return res
+
+    # a cut hcmv3 run: its lists from the engine's own tail on the card
+    with open(os.path.join(REPO, "portbench", "configs", "hcmv3.json")) as fh:
+        params = dict(json.load(fh)["dataset"]["params"], coverage=100.0)
+    t0 = time.time()
+    ds = hivsim.make_benchmark_dataset(os.path.join(WORK, "hcmv3_cut"),
+                                       seed=1, **params)
+    ids, seqs, k = pdata.read_gfa(ds.gfa_path)
+    reads = load_read_pairs(ds.fwd_path, ds.rve_path, k + 1,
+                            pad_to_multiple=32)
+    N = len(ids)
+    say(f"hcmv3 cut: N = {N}, {reads.num_pairs} pairs, generated and "
+        f"loaded in {time.time() - t0:.1f} s")
+    logger = logging.getLogger("chip_smoke.coo_accum")
+    table = TP.build_kmer_table(seqs, k + 1)
+    tab = TP._device_table(table, TP._route_probe("sort", True, table,
+                                                  logger), dev)
+    T = max(reads.fwd_codes.shape[1], reads.rve_codes.shape[1])
+    lists = []
+    for kind, payload in TP._wire_batches(reads, 16384):
+        feed = TP._upload_batch(kind, payload, dev)
+        out, ovf, _ = TP._sparse_core(
+            *TP._batch_hashes(kind, feed, T, tab.split_len), tab, 16, 32)
+        if bool(ovf):
+            raise AssertionError("hcmv3 cut: a batch overflowed cap 16")
+        lists.append(out.cpu().numpy())
+    label = f"hcmv3 cut, 2B={lists[0].shape[0]} cap=16 N={N}"
+    same(label, lists, N)
+    same(label + ", both tables rehashed 4x", lists, N, grow_at_end=True)
+    rng = np.random.RandomState(17)
+    syn = [_coo_skewed_lists(rng, 16384, 16, 8700) for _ in range(3)]
+    same("synthetic skewed, 2B=32768 cap=16 N=8700", syn, 8700)
+    checks = [timed(label, lists[0], N),
+              timed("synthetic skewed, 2B=32768 cap=16 N=8700", syn[0],
+                    8700)]
+
+    ref = pe_links.pe_links(seqs, pe_links.load_reads(ds.fwd_path,
+                                                      ds.rve_path, k + 1),
+                            k, dev)
+    engine = {}
+    for name, slots in (("first size", None), ("from 4,096 slots", 4096)):
+        ck.reset_launches()
+        before = tracing.totals()["counters"]
+        res = TP._infer_pe_links_sparse(ids, table, tab, reads, 16384,
+                                        logger, coo_slots=slots)
+        got = tracing.totals()["counters"]
+        grows = got["pe.coo_table_grows"] - before.get("pe.coo_table_grows",
+                                                       0)
+        node, short, bad = pe_engine_coo.matrices(res, N, dev)
+        differ = int((node != ref.node_mat).sum()
+                     + (short != ref.short_mat).sum()) + bad
+        launched = ck.LAUNCHES["coo_accum"]
+        if differ or not launched or (grows > 0) != (slots is not None):
+            raise AssertionError(f"hcmv3 cut engine ({name}): {differ} "
+                                 f"link entries differ, coo_accum "
+                                 f"launched {launched}, grows {grows}")
+        engine[name] = {"coo_accum_launches": launched,
+                        "coo_table_grows": grows,
+                        "pair_keys": int(res.pair_keys.size),
+                        "short_keys": int(res.short_keys.size)}
+    say(f"hcmv3 cut engine on the card: equal to the plain reference, "
+        f"{json.dumps(engine)}")
+    shutil.rmtree(os.path.join(WORK, "hcmv3_cut"), ignore_errors=True)
+    return {"checks": checks, "engine": engine,
+            "l2_atomic_rate": rate}
+
+
 def count_launches(name: str, run, expect_on, expect_off=()) -> dict:
     """Run one path with every launch count set to 0 just before and
     read just after; fail unless each kernel of the path launched and
@@ -879,7 +1084,7 @@ def hiv_sparse_phase(hiv: dict, hiv_data: str, rng) -> dict:
     pe_batch = 262144
     launches, wall = count_launches(
         "hiv sparse", lambda: run_cli(hiv, hiv_data, out, pe_batch=pe_batch),
-        ("window_hashes", "sort_rows"),
+        ("window_hashes", "sort_rows", "coo_accum"),
         ("stats_accum", "pair_counts", "dup_scan", "dup_stats"))
     with open(os.path.join(out, "vstrains.log")) as fh:
         shape = sparse_run_shape(fh)
@@ -2177,7 +2382,8 @@ def sp_kernel_check(world: int = 2) -> dict:
 _KERNEL_NAMES = ("pair_counts_kernel", "pack_words", "sort_rows_net",
                  "sort_chunk", "sort_global_pass", "sort_cols_net",
                  "stats_accum_shared", "stats_accum_global",
-                 "window_hashes_kernel", "dup_scan_kernel")
+                 "window_hashes_kernel", "dup_scan_kernel",
+                 "coo_accum_kernel", "coo_rehash_kernel")
 
 
 # --------------------------------------------------------------------------
@@ -2406,6 +2612,8 @@ def sass_summary(lib_path: str) -> list:
             keys = ("HGMMA", "IGMMA", "SHFL", "LDS", "STS", "BAR")
         elif name.startswith("dup_"):
             keys = ("LDG", "STG", "STG.128", "LDS", "STS", "ATOMS", "BAR")
+        elif name.startswith("coo_"):
+            keys = ("LDG", "MATCH", "ATOMG", "RED", "REDUX", "VOTE")
         else:
             continue
         ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
@@ -2496,7 +2704,7 @@ def main() -> int:
     launches, wall = count_launches(
         "hiv dense", lambda: run_cli(hiv, hiv_data, hiv_out),
         ("window_hashes", "stats_accum", "pair_counts"),
-        ("sort_rows", "dup_scan", "dup_stats"))
+        ("sort_rows", "dup_scan", "dup_stats", "coo_accum"))
     say(f"hiv: port CLI {wall:.2f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     check_digests("HIV output", hiv_out, hiv["outputs"])
@@ -2536,6 +2744,8 @@ def main() -> int:
     # 6. HIV through the sparse engine
     sparse_launches, sparse_checks = hiv_sparse_phase(
         hiv, hiv_data, np.random.RandomState(2))
+    # 6a. the sparse engine's link keys counted on the card
+    coo = coo_accum_check()
 
     # 7. the N = 50,000 cell
     c50 = cell_50k(expected["r50k"], np.random.RandomState(3))
@@ -2571,6 +2781,7 @@ def main() -> int:
     say(f"phase 15 (prewarm, cold build): {time.time() - t0:.1f} s")
 
     launches["sort_rows"] = sparse_launches["sort_rows"]
+    launches["coo_accum"] = sparse_launches["coo_accum"]
     launches["dup_stats"] = rep_dense["dup_stats"]
     launches["dup_scan"] = rep_sparse["dup_scan"]
     # each kernel's line: its main-path shape (the HIV dense run's; for
@@ -2581,9 +2792,10 @@ def main() -> int:
     kres["sort_rows"] = next(c for c in c50 if c["kernel"] == "sort_rows")
     kres["sort_cols"] = next(c for c in kres["also"]
                              if c["kernel"] == "sort_cols")
+    kres["coo_accum"] = coo["checks"][0]
     others = [c for c in kres["also"] if c is not kres["sort_cols"]] + \
         sparse_checks + [c for c in c50 if c is not kres["sort_rows"]] + \
-        hiv_dup + c300 + rep64 + [rep_plane, sp_check]
+        hiv_dup + c300 + rep64 + [rep_plane, sp_check] + coo["checks"][1:]
     keys = ("shape", "ms", "plain_ms", "library_ms", "library", "bound_ms",
             "bound_by", "entries_walked", "distinct_entries", "table_bytes")
     kernels = []
@@ -2612,6 +2824,16 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--pinned-drain"]:
         pinned_drain_check()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--coo-accum"]:
+        from vstrains_tpu_torch.ops import _build
+        os.makedirs(WORK, exist_ok=True)
+        built = _build.build()
+        for line in ptxas_summary(built["log"]) + sass_summary(
+                built["path"]):
+            if "coo_" in line:
+                say(f"  {line}")
+        say(json.dumps(coo_accum_check()))
         sys.exit(0)
     if sys.argv[1:2] == ["--rank"]:
         sys.exit(rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],

@@ -161,9 +161,13 @@ def test_cpu_wrappers_do_not_count_launches():
     ck.dup_scan(win, win, ones, win, rec, 3)
     ck.dup_stats(win, win, ones, win, rec, 3, 9)
     ck.sort_cols(key)
+    tables = ck.CooTables(9, "cpu", slots=4)
+    ck.coo_accum(torch.tensor([[0, 1, -1], [2, -1, -1]], dtype=torch.int32),
+                 torch.tensor(False), tables)
+    tables.grow(0)
     assert ck.LAUNCHES == {"window_hashes": 0, "stats_accum": 0,
                            "pair_counts": 0, "sort_rows": 0, "dup_scan": 0,
-                           "dup_stats": 0, "sort_cols": 0}
+                           "dup_stats": 0, "sort_cols": 0, "coo_accum": 0}
     assert ck.SORT_ROWS_WIDTHS == {}
     assert [k["name"] for k in ck.KERNELS] == list(ck.LAUNCHES)
 

@@ -51,6 +51,9 @@ CASES = {
     "sparse_sortfill": ("dup", "sparse_sharded", {}),
     "sparse_classic": ("repeat", "sparse_sharded", {}),
     "cap_retry": ("plain", "sparse_sharded", {"cap": 1, "cap_c": 2}),
+    # link tables of 2 slots: restarts and rehashes, agreed over the world
+    # (the port's own argument; the JAX engine has no tables)
+    "table_growth": ("plain", "sparse_sharded", {"coo_slots": 2}),
     "auto_sparse": ("plain", "sharded", {"stats_mode": "sparse"}),
 }
 BATCH = 48
@@ -180,7 +183,8 @@ def test_sharded_equals_jax_sharded(worlds, eight_devices, case, shape):
     mesh = JM.make_mesh(data=data, model=model, devices=eight_devices)
     fn = (JM.infer_pe_links_sharded if drv == "sharded"
           else JM.infer_pe_links_sparse_sharded)
-    want = fn(ids, refs, reads, k, mesh, batch_size=BATCH, **kw)
+    want = fn(ids, refs, reads, k, mesh, batch_size=BATCH,
+              **{key: v for key, v in kw.items() if key != "coo_slots"})
     kind = ("sparse" if isinstance(want, JP.PESparseResult) else "dense")
     assert kind == ("dense" if case.startswith("dense") else "sparse")
     ranks = worlds[data * model].ranks(f"{case}_{data}x{model}")
@@ -192,6 +196,10 @@ def test_sharded_equals_jax_sharded(worlds, eight_devices, case, shape):
     total = (want.node_mat.sum() if kind == "dense"
              else want.pair_counts.sum())
     assert total > 0
+    if case == "table_growth":
+        # the ranks that count link keys (model rank 0) grew their tables
+        assert all(int(got["coo_table_grows"]) > 0
+                   for r, got in enumerate(ranks) if r % model == 0)
 
 
 def test_sharded_cases_cover_both_probes():

@@ -3,8 +3,10 @@
 and read profile, on a 30,000 bp genome at 40x), held entry for entry to
 the benchmark's plain PyTorch reference (`portbench/reference/pe_links.py`:
 exact k-mers, no hash, no kernel) on both of the engine's routes, and the
-sparse engine's two counters: `pe.coo_keys`, the keys it expands on the
-host, and `pe.sparse_retries`, its cap-overflow retries."""
+sparse engine's counters: `pe.coo_keys`, the link keys it expands,
+`pe.sparse_retries`, its cap-overflow retries, `pe.coo_table_grows`, the
+growths of its link tables (a rehash at half full, a restart of the pass
+when full), and `pe.coo_unique_keys`."""
 
 import logging
 
@@ -16,6 +18,7 @@ from portbench import data
 from portbench.gen import hivsim
 from portbench.reference import pe_links
 from vstrains_tpu_torch.core.fastq import load_read_pairs
+from vstrains_tpu_torch.ops import cuda_kernels as ck
 from vstrains_tpu_torch.ops import pe_infer as TP
 from vstrains_tpu_torch.utils import tracing
 
@@ -132,5 +135,90 @@ def test_sparse_counters_in_the_stage_line(hcmv_cut, monkeypatch):
     TP.infer_pe_links(ids, seqs, reads, k, batch_size=BATCH,
                       stats_mode="sparse", device="cpu")
     line = tracing.since(before)
-    assert "pe.sparse_retries 0" in line
+    assert "pe.sparse_retries 0" in line and "pe.coo_table_grows 0" in line
     assert "pe.coo_keys " in line and "pe.d2h_bytes " in line
+    assert "pe.coo_unique_keys " in line
+
+
+class _Said(logging.Handler):
+    """Records the engine's log messages and the tables' rehashes, in
+    order."""
+
+    def __init__(self, monkeypatch):
+        super().__init__(logging.INFO)
+        self.events = []
+        grow = ck.CooTables.grow
+
+        def spy(tables, t):
+            self.events.append(f"rehash {t}")
+            grow(tables, t)
+
+        monkeypatch.setattr(ck.CooTables, "grow", spy)
+
+    def emit(self, record):
+        self.events.append(record.getMessage())
+
+    def count(self, text):
+        return sum(text in e for e in self.events)
+
+
+def _sparse_engine(cut, said, batch, **kw):
+    """The sparse engine on the cut, its log into `said`; returns the
+    result and what `pe.coo_table_grows` and `pe.sparse_retries`
+    gained."""
+    ids, seqs, reads, k, _ = cut
+    table = TP.build_kmer_table(seqs, k + 1)
+    logger = logging.getLogger(f"{TP.__name__}.test_hcmv")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(said)
+    tab = TP._device_table(table, TP._route_probe("sort", True, table,
+                                                  logger),
+                           torch.device("cpu"))
+    names = ("pe.coo_table_grows", "pe.sparse_retries")
+    before = tracing.totals()["counters"]
+    try:
+        res = TP._infer_pe_links_sparse(ids, table, tab, reads, batch,
+                                        logger, **kw)
+    finally:
+        logger.removeHandler(said)
+    got = tracing.totals()["counters"]
+    return res, [got[n] - before.get(n, 0) for n in names]
+
+
+def test_hcmv_link_tables_grow_and_restart(hcmv_cut, monkeypatch):
+    """From tables of 1,024 slots (the cut needs ~7,600 pair and ~5,200
+    short ones): a batch that fills a table restarts the pass with that
+    table 4x larger, and a table whose filled slots the host reads past
+    half is rehashed 4x before the next batch. Both engage and count in
+    `pe.coo_table_grows`; the result equals the reference."""
+    ids, ref = hcmv_cut[0], hcmv_cut[-1]
+    said = _Said(monkeypatch)
+    res, (grows, retries) = _sparse_engine(hcmv_cut, said, BATCH,
+                                           coo_slots=1024)
+    restarts = said.count("link table full")
+    rehashes = said.count("rehash ")
+    assert restarts >= 1 and rehashes >= 1 and retries == 0
+    assert grows >= restarts + rehashes
+    node, short = _dense(res, len(ids))
+    np.testing.assert_array_equal(node, ref.node_mat.numpy())
+    np.testing.assert_array_equal(short, ref.short_mat.numpy())
+
+
+def test_hcmv_cap_retry_after_a_growth(hcmv_cut, monkeypatch):
+    """At batch 256 and cap 9 the cut's first two batches fit and the
+    third overflows (a read end saturates 10 nodes); from 4,096 slots the
+    second batch takes both tables past half, so they are rehashed before
+    the overflow. The retry (caps 36/72) starts from empty tables of the
+    grown size and still equals the reference."""
+    ids, ref = hcmv_cut[0], hcmv_cut[-1]
+    said = _Said(monkeypatch)
+    res, (grows, retries) = _sparse_engine(hcmv_cut, said, 256, cap=9,
+                                           cap_c=18, coo_slots=4096)
+    first_ovf = next(i for i, e in enumerate(said.events)
+                     if "overflowed" in e)
+    assert retries == 1 and said.count("rehash ") == grows >= 1
+    assert said.events.index("rehash 0") < first_ovf
+    assert said.count("link table full") == 0
+    node, short = _dense(res, len(ids))
+    np.testing.assert_array_equal(node, ref.node_mat.numpy())
+    np.testing.assert_array_equal(short, ref.short_mat.numpy())

@@ -3,7 +3,10 @@ to end, on the same numpy-seeded inputs: the row-run stats (packed and
 two-operand forms), the run compaction, the saturation tail (both
 branches), the engine's COO arrays (also against the pure-Python
 oracle), the cap-overflow retry, and the files and stores built from a
-PESparseResult. Everything is integer, so every comparison is exact.
+PESparseResult; then the link-key tables (`cuda_kernels.coo_accum`, its
+plain version and a numpy emulation of its CUDA kernel, with the
+driver's finish) against the host COO they replace. Everything is
+integer, so every comparison is exact.
 
 Order contract: jax.lax.sort is not stable and sort_rows orders by (key,
 val). Each test compares exactly the slots the engine reads: all of
@@ -11,6 +14,8 @@ them where the sort key is a total order (the packed form), and the run
 ends or the valid compacted columns elsewhere."""
 
 import logging
+import os
+import re
 
 import numpy as np
 import pytest
@@ -22,6 +27,7 @@ from tests.oracle_pe import oracle_pe_matrices
 from tests.test_pe_infer import _make_batch, _random_refs, _sample_reads
 from tests.test_torch_pe_infer import _dup_graph, _port_batch
 from vstrains_tpu.ops import pe_infer as JP
+from vstrains_tpu_torch.ops import cuda_kernels as ck
 from vstrains_tpu_torch.ops import pe_infer as TP
 
 torch.set_num_threads(1)
@@ -240,3 +246,218 @@ def test_files_and_stores_from_sparse_result_match_jax(tmp_path):
         sp_d, _ = TP.pe_info_sparse_from_result(nodes, dense)
         assert dict(sp_t) == dict(sp_d)
         assert len(dict(sp_t)) > 0
+
+
+# --------------------------------------------------------------------------
+# the link-key tables (csrc/coo_accum.cu) against the host COO
+# --------------------------------------------------------------------------
+
+with open(os.path.join(os.path.dirname(TP.__file__), os.pardir, "csrc",
+                       "coo_accum.cu")) as _fh:
+    _COO_CU = _fh.read()
+
+
+def _cu_u64(name):
+    return int(re.search(rf"{name} = (0x[0-9a-f]+)ull;", _COO_CU).group(1),
+               16)
+
+
+_HASH_MUL = _cu_u64("kHashMul")
+
+
+def test_coo_kernel_constants_match_the_wrapper():
+    assert _cu_u64("kEmpty") == ck.COO_EMPTY
+    got = dict(re.findall(r"(k\w+) = (\d+)", re.search(
+        r"constexpr int kOvf = [^;]+;", _COO_CU).group(0)))
+    assert got == {"kOvf": str(ck.COO_OVF), "kKeys": str(ck.COO_KEYS),
+                   "kFill": str(ck.COO_FILL), "kFullFlag": str(ck.COO_FULL)}
+    assert ck.COO_STATS == ck.COO_FULL + 2
+
+
+def _emu_insert(tab, key, cnt):
+    """csrc/coo_accum.cu's insert(): 1 claimed, 0 found, -1 full."""
+    S = tab.shape[0]
+    s = ((key * _HASH_MUL) % 2**64) >> (64 - (S.bit_length() - 1))
+    for _ in range(S):
+        if tab[s, 0] == ck.COO_EMPTY:
+            tab[s] = key, cnt
+            return 1
+        if tab[s, 0] == key:
+            tab[s, 1] += cnt
+            return 0
+        s = (s + 1) & (S - 1)
+    return -1
+
+
+def _emu_walk(f, r, N):
+    """One lane's (table, key) steps in the kernel's order: each row's
+    ids up to its first -1; pair keys row by row, then the forward and
+    the reverse same-end keys, i <= j."""
+    f = [int(x) for x in f[:np.argmin(np.append(f, -1) >= 0)]]
+    r = [int(x) for x in r[:np.argmin(np.append(r, -1) >= 0)]]
+    steps = [(0, u * N + v) for u in f for v in r]
+    for ids in (f, r):
+        steps += [(1, ids[i] * N + ids[j]) for i in range(len(ids))
+                  for j in range(i, len(ids))]
+    return steps
+
+
+def _emu_coo_accum(out, ovf, tables):
+    """coo_accum_kernel in numpy: 32 lanes a warp, one read pair a lane;
+    at each step the lanes holding one (table, key) add it once, by the
+    group's size; the warp's keys and claims go to the counters."""
+    stats = tables.stats
+    stats[ck.COO_OVF] = int(ovf)
+    if ovf:
+        return
+    B, N = out.shape[0] // 2, tables.num_nodes
+    full = bool(stats[ck.COO_FULL:].any())
+    tabs = [t.numpy() for t in tables.tabs]
+    for w in range(0, max(B, 1), 32):
+        walks = [_emu_walk(out[p], out[B + p], N) if p < B else []
+                 for p in range(w, w + 32)]
+        stats[ck.COO_KEYS] += sum(len(x) for x in walks)
+        for step in range(0 if full else max(len(x) for x in walks)):
+            groups = {}
+            for walk in walks:
+                if step < len(walk):
+                    groups[walk[step]] = groups.get(walk[step], 0) + 1
+            for (t, key), n in groups.items():
+                got = _emu_insert(tabs[t], key, n)
+                if got > 0:
+                    stats[ck.COO_FILL + t] += 1
+                elif got < 0:
+                    stats[ck.COO_FULL + t] = 1
+
+
+def _emu_grow(tables, t):
+    """coo_rehash_kernel in numpy: every key into an empty 4x table."""
+    new = ck._empty_table(4 * tables.slots[t], "cpu")
+    for key, cnt in tables.tabs[t].numpy():
+        if key != ck.COO_EMPTY:
+            _emu_insert(new.numpy(), int(key), int(cnt))
+    tables.tabs[t] = new
+    tables.slots[t] *= 4
+
+
+def _emu_accum(out, ovf, tables):
+    _emu_coo_accum(out.numpy(), bool(ovf), tables)
+
+
+def _coo_lists(rng, B, cap, N, fwd=True, rve=True, full=False):
+    """A batch's (2B, cap) saturated lists as the sparse tail returns
+    them: each row's ids distinct and ascending, then -1s; the ids drawn
+    from a few nodes, so keys repeat across lanes."""
+    out = np.full((2 * B, cap), -1, np.int32)
+    pool = rng.choice(N, min(N, 3 * cap), replace=False)
+    for row in range(2 * B):
+        if not (fwd if row < B else rve):
+            continue
+        n = cap if full else rng.randint(0, cap + 1)
+        out[row, :n] = np.sort(rng.choice(pool, n, replace=False))
+    return out
+
+
+def _host_coo(lists, N):
+    """The host COO the tables replace: _sparse_pairs_np a batch,
+    np.unique, then _merge_coo over the batches."""
+    chunks = [[], [], [], []]
+    for out in lists:
+        B = out.shape[0] // 2
+        for t, keys in enumerate(TP._sparse_pairs_np(out[:B], out[B:], N)):
+            u, c = np.unique(keys, return_counts=True)
+            chunks[2 * t].append(u)
+            chunks[2 * t + 1].append(c)
+    return (*TP._merge_coo(chunks[0], chunks[1]),
+            *TP._merge_coo(chunks[2], chunks[3]))
+
+
+def _expanded(lists, N):
+    return sum(k.size for out in lists for k in TP._sparse_pairs_np(
+        out[:out.shape[0] // 2], out[out.shape[0] // 2:], N))
+
+
+COO_CASES = {
+    "empty_rows": dict(fwd=False, rve=False),
+    "rows_full_at_cap": dict(full=True),
+    "forward_only": dict(rve=False),
+    "reverse_only": dict(fwd=False),
+    "batches_into_one_table": dict(batches=4),
+    "batches_across_a_growth": dict(batches=4, grow_after=2, slots=512),
+    "keys_past_2_32": dict(batches=2, N=70_000),
+}
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel_emulated"])
+@pytest.mark.parametrize("case", sorted(COO_CASES))
+def test_coo_accum_matches_host_coo(case, route):
+    """Each batch into the tables (the wrapper's plain version, or the
+    kernel's emulation), then an overflowed batch (which adds nothing),
+    then the driver's finish (pe_infer._coo_finish: keys sorted, cut to
+    the filled slots): the host COO's arrays entry for entry, int64; the
+    counters: the overflow flag, every expanded key, the distinct keys
+    filled, no table full."""
+    p = dict(batches=1, fwd=True, rve=True, full=False, N=50,
+             grow_after=None, slots=4096)
+    p.update(COO_CASES[case])
+    rng = np.random.RandomState(len(case))
+    B, cap, N = 40, 5, p["N"]
+    lists = [_coo_lists(rng, B, cap, N, p["fwd"], p["rve"], p["full"])
+             for _ in range(p["batches"])]
+    tables = ck.CooTables(N, "cpu", slots=p["slots"])
+    accum = ck.coo_accum if route == "plain" else _emu_accum
+    grow = ck.CooTables.grow if route == "plain" else _emu_grow
+    for i, out in enumerate(lists):
+        accum(torch.from_numpy(out), torch.tensor(False), tables)
+        if i + 1 == p["grow_after"]:
+            assert 2 * tables.stats[ck.COO_FILL] > tables.slots[0]
+            grow(tables, 0)
+            grow(tables, 1)
+    accum(torch.from_numpy(np.zeros((2 * B, cap), np.int32)),
+          torch.tensor(True), tables)
+    stats = tables.stats.tolist()
+    want = _host_coo(lists, N)
+    got = TP._coo_finish(tables, stats[ck.COO_FILL:ck.COO_FILL + 2])
+    for g, w in zip(got, want):
+        assert g.dtype == np.int64
+        np.testing.assert_array_equal(g, w)
+    assert stats == [1, _expanded(lists, N), want[0].size, want[2].size,
+                     0, 0]
+    if case == "empty_rows":
+        assert stats[ck.COO_KEYS] == 0
+    elif case in ("forward_only", "reverse_only"):
+        assert want[0].size == 0 < want[2].size
+    else:
+        assert want[1].max() > 1  # keys repeat
+    if case == "keys_past_2_32":
+        assert want[0].max() > 2**32
+
+
+@pytest.mark.parametrize("route", ["plain", "kernel_emulated"])
+def test_coo_accum_full_table_stops_inserting(route):
+    """Keys past a table's slots mark it full (its slots all filled);
+    later batches only add to the key count: the driver restarts the
+    pass."""
+    rng = np.random.RandomState(3)
+    N, B = 60, 40
+    lists = [_coo_lists(rng, B, 5, N) for _ in range(2)]
+    tables = ck.CooTables(N, "cpu", slots=16)
+    accum = ck.coo_accum if route == "plain" else _emu_accum
+    accum(torch.from_numpy(lists[0]), torch.tensor(False), tables)
+    stats = tables.stats.tolist()
+    assert stats[ck.COO_FILL:] == [16, 16, 1, 1]
+    before = [t.clone() for t in tables.tabs]
+    accum(torch.from_numpy(lists[1]), torch.tensor(False), tables)
+    assert all(torch.equal(a, b) for a, b in zip(tables.tabs, before))
+    assert tables.stats[ck.COO_KEYS] == _expanded(lists, N)
+
+
+def test_coo_table_slots_follow_n():
+    assert ck.coo_table_slots(8_700) == 2**20
+    assert ck.coo_table_slots(1_000) == 2**16
+    assert ck.coo_table_slots(9) == 256  # the first power of two past 2N²
+    for n in (1, 9, 100, 1_000, 8_700, 300_000):
+        s = ck.coo_table_slots(n)
+        assert s & (s - 1) == 0 and (s > 2 * n * n or s >= 64 * n)
+    with pytest.raises(ValueError):
+        ck.CooTables(9, "cpu", slots=24)

@@ -136,14 +136,19 @@ def test_dense_counters():
 def test_sparse_counters():
     ids, refs, reads, k = _inputs()
     before = tracing.totals()["counters"]
-    TP.infer_pe_links(ids, refs, reads, k, batch_size=32, device="cpu",
-                      stats_mode="sparse")
+    res = TP.infer_pe_links(ids, refs, reads, k, batch_size=32,
+                            device="cpu", stats_mode="sparse")
     got = {key: v - before.get(key, 0)
            for key, v in tracing.totals()["counters"].items()}
     n = -(-reads.num_pairs // 32)
     assert got["pe.batches"] == n
-    # each batch's (2B, cap) int32 saturated-node list and its flag
-    assert got["pe.d2h_bytes"] == n * (2 * 32 * 16 * 4 + 1)
+    # each batch's flags (the link tables' int64 counters), then the
+    # pass's COO arrays
+    coo = (res.pair_keys, res.pair_counts, res.short_keys, res.short_counts)
+    assert got["pe.d2h_bytes"] == (n * ck.COO_STATS * 8
+                                   + sum(a.nbytes for a in coo))
+    assert got["pe.coo_unique_keys"] == res.pair_keys.size \
+        + res.short_keys.size > 0
 
 
 def test_profiled_counters_only_while_profiling():
@@ -162,7 +167,7 @@ def test_launch_counters_are_the_registrys_group():
     assert ck.SORT_ROWS_WIDTHS is tracing.counter_group("sort_rows_widths")
     assert list(ck.LAUNCHES) == ["window_hashes", "stats_accum",
                                  "pair_counts", "sort_rows", "dup_scan",
-                                 "dup_stats", "sort_cols"]
+                                 "dup_stats", "sort_cols", "coo_accum"]
     assert set(tracing.totals()["launches"]) == set(ck.LAUNCHES)
 
 

@@ -49,10 +49,15 @@ def run_job(job: dict, rank: int, world: int) -> dict:
                 batch_size=job["batch_size"],
                 stats_mode=job.get("stats_mode", "auto"))
         else:
+            from vstrains_tpu_torch.utils import tracing
+            before = tracing.totals()["counters"]
             res = M.infer_pe_links_sparse_sharded(
                 ids, refs, _reads(npz), int(npz["k"]), mesh,
                 batch_size=job["batch_size"], cap=job.get("cap", 16),
-                cap_c=job.get("cap_c"))
+                cap_c=job.get("cap_c"), coo_slots=job.get("coo_slots"))
+            grows = (tracing.totals()["counters"]["pe.coo_table_grows"]
+                     - before.get("pe.coo_table_grows", 0))
+            return dict(_result_arrays(res), coo_table_grows=grows)
         return _result_arrays(res)
     if kind == "multihost":
         ids, seqs = [], []

@@ -150,6 +150,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "vt_sort_cols": [p, i64, i64, p, p],
         "vt_dup_stats": [*[p] * 5, *[i64] * 5, p, p, p],
         "vt_dup_scan": [*[p] * 5, *[i64] * 4, p, p, p],
+        "vt_coo_accum": [p, i64, i64, i64, i64, p, i64, p, i64, p, p, p],
+        "vt_coo_rehash": [p, i64, p, i64, p, p],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

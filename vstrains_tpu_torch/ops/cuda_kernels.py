@@ -1,4 +1,4 @@
-"""The port's seven hand-written CUDA kernels, each beside its plain
+"""The port's eight hand-written CUDA kernels, each beside its plain
 PyTorch version.
 
   * window_hashes_wire / window_hashes_bytes: csrc/window_hashes.cu,
@@ -18,7 +18,11 @@ PyTorch version.
     tail's (node, window) planes for the sparse engine: the port's own
     kernels for XLA stages of the JAX package
     (pe_infer.py::_dup_scan_stats_impl and _sparse_expand_matches; no
-    Pallas kernel there).
+    Pallas kernel there);
+  * coo_accum: csrc/coo_accum.cu, the sparse engine's link keys counted
+    into two hash tables on the card, in place of the JAX package's host
+    COO (pe_infer.py::_sparse_pairs_np and _merge_coo; no TPU kernel);
+    its launches count the tables' growth (coo_rehash) too.
 
 A wrapper takes its plain version only when its tensors lie on the CPU
 (the CPU tests, `--device cpu`). On a CUDA tensor it launches the kernel,
@@ -46,7 +50,7 @@ _M32 = 0xFFFFFFFF
 # group "launches" of the program's registry (utils/tracing.py)
 LAUNCHES: Dict[str, int] = tracing.counter_group("launches", {
     "window_hashes": 0, "stats_accum": 0, "pair_counts": 0, "sort_rows": 0,
-    "dup_scan": 0, "dup_stats": 0, "sort_cols": 0})
+    "dup_scan": 0, "dup_stats": 0, "sort_cols": 0, "coo_accum": 0})
 # sort_rows' launches since the last reset_launches(), by padded row width
 # (which says the branch: the one-block network up to SORT_NET_MAX)
 SORT_ROWS_WIDTHS: Dict[int, int] = tracing.counter_group("sort_rows_widths")
@@ -79,6 +83,12 @@ KERNELS = [
      "replaces": "tools/colsort_proto.py:58",
      "note": "no caller on any path: the JAX package's column sorter is a "
              "tested prototype that its engine does not use"},
+    {"name": "coo_accum", "route": "cuda",
+     "source": "vstrains_tpu_torch/csrc/coo_accum.cu",
+     "replaces": "vstrains_tpu/ops/pe_infer.py:1431",
+     "note": "port-only: replaces the host COO of "
+             "vstrains_tpu/ops/pe_infer.py:1431 (_sparse_pairs_np) and "
+             ":1458 (_merge_coo), no TPU kernel"},
 ]
 
 
@@ -610,3 +620,131 @@ def dup_scan(q1, h2, valid, lo, table, depth: int):
                 table.data_ptr(), R * K, K, depth, table.shape[0],
                 node_key.data_ptr(), kidx_v.data_ptr())
     return node_key, kidx_v
+
+
+# --------------------------------------------------------------------------
+# the sparse engine's link keys counted on the card (csrc/coo_accum.cu)
+# --------------------------------------------------------------------------
+
+COO_EMPTY = 2**63 - 1  # a free slot's key
+# CooTables.stats, int64, copied to the host after each batch: that
+# batch's cap-overflow flag, the keys expanded so far, each table's filled
+# slots (pair, short) and full flags (pair, short)
+COO_OVF, COO_KEYS, COO_FILL, COO_FULL, COO_STATS = 0, 1, 2, 4, 6
+
+
+def coo_table_slots(num_nodes: int) -> int:
+    """A link table's first size: the power of two at or above 64 N and
+    2^16, and at most the first one above 2 N², which holds every key
+    with half its slots free."""
+    slots = max(_pow2_at_least(64 * num_nodes), 1 << 16)
+    return max(2, min(slots, _pow2_at_least(2 * num_nodes ** 2 + 1)))
+
+
+def _empty_table(slots: int, device) -> torch.Tensor:
+    return torch.tensor([COO_EMPTY, 0], dtype=torch.int64,
+                        device=device).repeat(slots, 1)
+
+
+class CooTables:
+    """The sparse engine's two link-key tables, pair keys and same-end
+    (short) keys, for the passes of one engine call. Each is int64
+    [slots, 2] (key, count) rows: on CUDA an open-addressing hash table
+    (COO_EMPTY keys are free slots); in the plain version the table's
+    keys ascending in its first rows, then COO_EMPTY rows. `stats` holds
+    the COO_* counters. `reset()` empties both tables for a pass, at the
+    sizes in `slots`; `grow(t)` moves table t into 4x its slots."""
+
+    def __init__(self, num_nodes: int, device, slots: Optional[int] = None):
+        slots = coo_table_slots(num_nodes) if slots is None else slots
+        if slots < 2 or slots & (slots - 1):
+            raise ValueError(f"link table of {slots} slots: expected a "
+                             "power of two of at least 2")
+        self.num_nodes = num_nodes
+        self.device = torch.device(device)
+        self.slots = [slots, slots]
+        self.reset()
+
+    def reset(self) -> None:
+        self.tabs = [_empty_table(s, self.device) for s in self.slots]
+        self.stats = torch.zeros(COO_STATS, dtype=torch.int64,
+                                 device=self.device)
+
+    def grow(self, t: int) -> None:
+        """Table t (0 pair, 1 short) into 4x its slots, every key kept
+        with its count: one rehash launch on CUDA."""
+        old = self.tabs[t]
+        new = _empty_table(4 * self.slots[t], self.device)
+        if _on_cuda(old):
+            _launch("coo_accum", _lib().vt_coo_rehash, old.device,
+                    old.data_ptr(), old.shape[0], new.data_ptr(),
+                    (4 * self.slots[t]).bit_length() - 1,
+                    self.stats[COO_FULL + t:].data_ptr())
+        else:
+            new[:old.shape[0]] = old
+        self.tabs[t] = new
+        self.slots[t] *= 4
+
+
+def coo_accum_plain(out: torch.Tensor, ovf: torch.Tensor,
+                    tables: CooTables) -> None:
+    """The JAX package's host COO, a batch at a time: the batch's keys
+    from pe_infer._sparse_pairs_np, made unique (np.unique) and merged
+    into each table's keys (pe_infer._merge_coo). A table whose keys
+    outgrow its slots keeps the first of them and is marked full; while
+    a table is full, batches add keys to COO_KEYS only."""
+    # the host COO is the engine's own code (the engine imports this
+    # module)
+    from vstrains_tpu_torch.ops import pe_infer
+
+    stats = tables.stats
+    stats[COO_OVF] = int(bool(ovf))
+    if stats[COO_OVF]:
+        return
+    sn = out.numpy()
+    b = sn.shape[0] // 2
+    keys = pe_infer._sparse_pairs_np(sn[:b], sn[b:], tables.num_nodes)
+    stats[COO_KEYS] += sum(k.size for k in keys)
+    if stats[COO_FULL:].any():
+        return
+    for t, k in enumerate(keys):
+        tab = tables.tabs[t].numpy()
+        fill = int(stats[COO_FILL + t])
+        u, c = np.unique(k, return_counts=True)
+        mk, mc = pe_infer._merge_coo([tab[:fill, 0], u], [tab[:fill, 1], c])
+        n = min(mk.size, tab.shape[0])
+        tab[:n, 0] = mk[:n]
+        tab[:n, 1] = mc[:n]
+        stats[COO_FILL + t] = n
+        stats[COO_FULL + t] = int(mk.size > n)
+
+
+def coo_accum(out: torch.Tensor, ovf: torch.Tensor,
+              tables: CooTables) -> torch.Tensor:
+    """Add one batch's link keys into `tables`: out int32 [2B, cap] (rows
+    may lie apart, columns adjacent), the forward then the reverse read
+    ends' saturated node ids (each row its ids, then -1s), as the sparse
+    tail returns them; ovf, bool (one
+    element), the batch's cap overflow: an overflowed batch adds
+    nothing. Returns tables.stats, this batch's flag at COO_OVF."""
+    if not _on_cuda(out, ovf, tables.stats):
+        coo_accum_plain(out, ovf, tables)
+        return tables.stats
+    if out.dtype != torch.int32 or out.dim() != 2 or out.stride(1) != 1:
+        raise ValueError(f"out: expected a 2-D int32 tensor with adjacent "
+                         f"columns, got {out.dtype} {tuple(out.shape)} "
+                         f"strides {out.stride()}")
+    if ovf.dtype != torch.bool or ovf.numel() != 1:
+        raise ValueError(f"ovf: expected one bool, got {ovf.dtype} "
+                         f"{tuple(ovf.shape)}")
+    B2, cap = out.shape
+    if B2 % 2:
+        raise ValueError(f"out has {B2} rows: expected forward and reverse "
+                         "rows, 2B")
+    pair, short = tables.tabs
+    _launch("coo_accum", _lib().vt_coo_accum, out.device, out.data_ptr(),
+            B2 // 2, cap, out.stride(0), tables.num_nodes, pair.data_ptr(),
+            pair.shape[0].bit_length() - 1, short.data_ptr(),
+            short.shape[0].bit_length() - 1, ovf.data_ptr(),
+            tables.stats.data_ptr())
+    return tables.stats

@@ -39,8 +39,9 @@ per-slot (node, window) pairs (the classic probe's from the CUDA kernel
 `dup_scan`, csrc/dup_scan.cu) are row-sorted by (node, window) — CUDA
 kernel `sort_rows` (csrc/sort_rows.cu) — and reduced to per-run counts and
 lowest windows by running scans; the saturated nodes of each read
-compact into a (2B, cap) list, and the host expands them into COO link
-keys (`PESparseResult`).
+compact into a (2B, cap) list, whose link keys the CUDA kernel
+`coo_accum` (csrc/coo_accum.cu) counts into two hash tables that live
+for the pass, sorted into COO form at its end (`PESparseResult`).
 
 On CPU tensors each kernel wrapper runs its plain torch version instead
 (`--device cpu`, the CPU tests). Every probe mode and stats mode of the
@@ -1277,17 +1278,21 @@ def _drain_dense(*accs: torch.Tensor) -> tuple:
 def _infer_pe_links_sparse(ids, table: KmerTable, tab: _DeviceTable,
                            reads: ReadPairBatch, batch_size: int,
                            logger: logging.Logger, cap: int = 16,
-                           cap_c: int = 32) -> PESparseResult:
-    """Large-N engine: the same probes, sparse per-batch stats and host
-    COO accumulation; the footprint does not grow with N. The classic
-    probe takes the byte feed, as in the JAX package. A cap overflow
-    retries the whole run at 4x the caps with the same table on the
-    device."""
+                           cap_c: int = 32,
+                           coo_slots: Optional[int] = None
+                           ) -> PESparseResult:
+    """Large-N engine: the same probes, sparse per-batch stats and link
+    keys counted into hash tables on the device; the footprint grows with
+    the distinct links, not with N². The classic probe takes the byte
+    feed, as in the JAX package. A cap overflow retries the whole run at
+    4x the caps with the same table on the device. `coo_slots` sets the
+    link tables' first size (default ck.coo_table_slots(N))."""
     N = tab.num_nodes
     dev = tab.h1.device
     T = max(reads.fwd_codes.shape[1], reads.rve_codes.shape[1])
     batch_size = _sparse_batch_clamp(batch_size, T, tab.split_len,
                                      table.max_dup, logger)
+    tables = ck.CooTables(N, dev, coo_slots)
 
     def one_pass(cap, cap_c):
         logger.info("sparse PE stats path: N=%d, cap=%d, depth=%d, "
@@ -1303,7 +1308,7 @@ def _infer_pe_links_sparse(ids, table: KmerTable, tab: _DeviceTable,
 
         batches = _wire_batches(reads, batch_size,
                                 force_bytes=tab.probe != "sortfill")
-        return _sparse_run(batches, core, N, dev)
+        return _sparse_run(batches, core, dev, tables)
 
     pk, pc, sk, sc = _sparse_retry(one_pass, cap, cap_c, logger)
     return PESparseResult(list(ids), pk, pc, sk, sc, reads.n_reads,
@@ -1327,13 +1332,25 @@ def _sparse_batch_clamp(batch_size: int, T: int, split_len: int,
     return clamped
 
 
+# _sparse_run's outcome when a key found no free slot in a link table
+_TABLE_FULL = "link table full"
+
+
 def _sparse_retry(one_pass, cap: int, cap_c: int, logger: logging.Logger):
-    """one_pass(cap, cap_c) -> the merged COO, or None on a cap overflow;
-    an overflow retries the pass at 4x the caps, up to 256. Each retry adds
-    one to the counter `pe.sparse_retries` (named, at 0, on every call)."""
+    """one_pass(cap, cap_c) -> the merged COO, None on a cap overflow or
+    _TABLE_FULL. An overflow retries the pass at 4x the caps, up to 256,
+    and adds one to the counter `pe.sparse_retries`; a full link table
+    restarts it at the same caps (the table has grown 4x and counted
+    `pe.coo_table_grows`). Both counters are named, at 0, on every
+    call."""
     count("pe.sparse_retries", 0)
+    count("pe.coo_table_grows", 0)
     while True:
         coo = one_pass(cap, cap_c)
+        if coo is _TABLE_FULL:
+            logger.info("sparse link table full; restarting the pass with "
+                        "a 4x table")
+            continue
         if coo is not None:
             return coo
         if cap >= 256:
@@ -1346,77 +1363,119 @@ def _sparse_retry(one_pass, cap: int, cap_c: int, logger: logging.Logger):
         cap, cap_c = cap * 4, cap_c * 4
 
 
-def _sparse_run(batches, core, num_nodes: int, dev, expand: bool = True):
+def _sparse_run(batches, core, dev, tables: Optional[ck.CooTables] = None):
     """One pass of the sparse engine: core(kind, payload) -> (out [2B, cap]
     saturated node ids, overflow flag) queued on `dev` for each of
-    `batches` ((kind, payload) as _wire_batches yields them). Returns the
-    merged COO (pair keys, counts, short keys, counts; empty unless
-    `expand`), or None on a cap overflow, which ends the pass.
+    `batches` ((kind, payload) as _wire_batches yields them), and each
+    batch's link keys counted into `tables` (coo_accum, behind `core`).
+    Returns the pass's COO (pair keys, counts, short keys, counts: sorted
+    unique int64 host arrays; empty without `tables`), None on a cap
+    overflow, which ends the pass, or _TABLE_FULL when a key found no free
+    slot in a table (the pass runs to its end, so that ranks sharing its
+    batches stay in step, and the full table is 4x larger for the next
+    pass). The tables start empty each pass.
 
-    Batch i's result is copied to the host behind its own kernels and
-    read after batch i+1 is queued, so the device always has the next
-    batch while the host expands COO keys, and no batch syncs the stream
-    on its own.
+    Batch i's flags (tables.stats, or the overflow flag alone without
+    tables) are copied to the host behind its own kernels and read after
+    batch i+1 is queued, so the device always has the next batch and no
+    batch syncs the stream on its own. A table whose filled slots, so
+    read, pass half its slots grows 4x (a rehash queued before the next
+    batch).
 
     Spans besides those of the batches and `core` (pe.pack, pe.upload,
-    pe.queue): pe.queue around the queued D2H, and pe.drain around each
-    pulled batch (pe.wait, the host blocked on the device, then pe.coo,
-    its host COO expansion) and around the final merge. The counter
-    `pe.coo_keys` adds the pair and short keys each batch expands on the
-    host, before they are made unique."""
-    pe_k, pe_c, st_k, st_c = [], [], [], []
+    pe.queue): pe.queue around coo_accum and the queued D2H, pe.drain
+    around each pulled batch (pe.wait: the host blocked on the device for
+    the batch's flags) and around the pass's end (pe.coo: the tables'
+    keys sorted and copied to the host, one wait). Counters: `pe.coo_keys`
+    the keys the pass expanded (an aborted pass's too), read from the
+    device counter; `pe.coo_unique_keys` the distinct keys it ends with;
+    `pe.coo_table_grows` each growth."""
     on_cuda = dev.type == "cuda"
+    if tables is not None:
+        tables.reset()
+    last = [0] * ck.COO_STATS  # the latest batch's flags
 
     def queue(kind, payload):
         out, ovf = core(kind, payload)
-        count("pe.d2h_bytes", out.nbytes + ovf.nbytes)
-        if not on_cuda:
-            return out, ovf, None
         with span("pe.queue"):
-            out_h = torch.empty(out.shape, dtype=out.dtype, device="cpu",
-                                pin_memory=True)
-            ovf_h = torch.empty((), dtype=torch.bool, device="cpu",
-                                pin_memory=True)
-            out_h.copy_(out, non_blocking=True)
-            ovf_h.copy_(ovf, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(dev))
-        return out_h, ovf_h, done
+            flags = (ovf.reshape(1).to(torch.int64) if tables is None
+                     else ck.coo_accum(out, ovf, tables))
+            if on_cuda:
+                block = torch.empty(flags.shape, dtype=flags.dtype,
+                                    device="cpu", pin_memory=True)
+                block.copy_(flags, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(dev))
+            else:
+                block, done = flags.clone(), None
+        count("pe.d2h_bytes", block.nbytes)
+        return block, done
 
     def drain(item) -> bool:
-        out_h, ovf_h, done = item
+        block, done = item
         with span("pe.wait"):
             if done is not None:
                 done.synchronize()
-        if bool(ovf_h):
+        flags = block.tolist()
+        last[:len(flags)] = flags
+        if flags[ck.COO_OVF]:
             return False
-        if not expand:
-            return True
-        with span("pe.coo"):
-            sn = out_h.numpy()
-            b = sn.shape[0] // 2
-            pe, st = _sparse_pairs_np(sn[:b], sn[b:], num_nodes)
-            count("pe.coo_keys", pe.size + st.size)
-            for arr, kl, cl in ((pe, pe_k, pe_c), (st, st_k, st_c)):
-                u, c = np.unique(arr, return_counts=True)
-                kl.append(u)
-                cl.append(c)
+        if tables is not None and not any(flags[ck.COO_FULL:]):
+            for t in (0, 1):
+                if 2 * flags[ck.COO_FILL + t] > tables.slots[t]:
+                    tables.grow(t)
+                    count("pe.coo_table_grows")
         return True
 
-    pending = None
-    while True:
+    ok, pending = True, None
+    while ok:
         nxt = next(batches, None)
         item = None if nxt is None else queue(*nxt)
         if pending is not None:
             with span("pe.drain"):
                 ok = drain(pending)
-            if not ok:
-                return None
         if item is None:
             break
         pending = item
+    if tables is None:
+        if not ok:
+            return None
+        z = np.zeros(0, np.int64)
+        return z, z.copy(), z.copy(), z.copy()
+    count("pe.coo_keys", last[ck.COO_KEYS])
+    if not ok:
+        return None
+    full = [t for t in (0, 1) if last[ck.COO_FULL + t]]
+    if full:
+        for t in full:
+            tables.slots[t] *= 4
+            count("pe.coo_table_grows")
+        return _TABLE_FULL
     with span("pe.drain"), span("pe.coo"):
-        return (*_merge_coo(pe_k, pe_c), *_merge_coo(st_k, st_c))
+        return _coo_finish(tables, last[ck.COO_FILL:ck.COO_FILL + 2])
+
+
+def _coo_finish(tables: ck.CooTables, fills) -> tuple:
+    """Each table's keys ascending with their counts, cut to its filled
+    slots (free slots' COO_EMPTY keys sort last): host int64 arrays (pair
+    keys, counts, short keys, counts), on CUDA copied into page-locked
+    blocks behind one wait. Adds the distinct keys to
+    `pe.coo_unique_keys`."""
+    parts = []
+    for tab, fill in zip(tables.tabs, fills):
+        keys, order = torch.sort(tab[:, 0])
+        parts += [keys[:fill], tab[:, 1][order[:fill]]]
+    if tables.device.type == "cuda":
+        host = [torch.empty(p.shape, dtype=p.dtype, device="cpu",
+                            pin_memory=True) for p in parts]
+        for h, p in zip(host, parts):
+            h.copy_(p, non_blocking=True)
+        torch.cuda.current_stream(tables.device).synchronize()
+        parts = host
+    out = tuple(p.numpy() for p in parts)
+    count("pe.d2h_bytes", sum(a.nbytes for a in out))
+    count("pe.coo_unique_keys", sum(fills))
+    return out
 
 
 # --------------------------------------------------------------------------

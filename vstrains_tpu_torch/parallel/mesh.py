@@ -54,9 +54,9 @@ from vstrains_tpu_torch.core.fastq import ReadPairBatch
 from vstrains_tpu_torch.device import resolve_device
 from vstrains_tpu_torch.ops import cuda_kernels as ck
 from vstrains_tpu_torch.ops.pe_infer import (
-    _INF, _SORTFILL_MAX_DUP, KmerTable, PEResult, PESparseResult,
-    _batch_pairs, _batch_stats, _build_sortfill_payloads, _device_table,
-    _hash_batch, _merge_coo, _slot_planes, _sortfill_node_bits,
+    _INF, _SORTFILL_MAX_DUP, _TABLE_FULL, KmerTable, PEResult,
+    PESparseResult, _batch_pairs, _batch_stats, _build_sortfill_payloads,
+    _device_table, _hash_batch, _merge_coo, _slot_planes, _sortfill_node_bits,
     _sparse_batch_clamp, _sparse_merge_sat_tail, _sparse_retry, _sparse_run,
     _sparse_run_stats_compact, _sparse_sat_tail, _wire_batches,
     build_kmer_table, dense_budget_rows)
@@ -329,16 +329,19 @@ def infer_pe_links_sparse_sharded(ids: Sequence[str],
                                   logger: logging.Logger = None,
                                   cap: int = 16,
                                   cap_c: Optional[int] = None,
-                                  table: Optional[KmerTable] = None
+                                  table: Optional[KmerTable] = None,
+                                  coo_slots: Optional[int] = None
                                   ) -> PESparseResult:
     """Multi-GPU large-N PE inference: the sparse COO engine, DP over
     reads x TP over the k-mer table. Returns the single-GPU sparse
     engine's PESparseResult, bit-identical for any mesh shape, on every
     rank. Each rank's pass is the single-GPU engine's loop (its host copy
     of a batch overlapping the next batch's kernels), fed this rank's
-    rows; only model rank 0 expands COO keys. A cap overflow anywhere
+    rows; only model rank 0 counts link keys. A cap overflow anywhere
     (agreed over the world) retries the whole run at 4x the caps, up to
-    256, as the JAX package does."""
+    256, as the JAX package does; a full link table on any rank restarts
+    it at the same caps (`coo_slots`: the tables' first size, as in
+    pe_infer._infer_pe_links_sparse)."""
     logger = logger or _LOG
     split_len = kmer_size + 1
     if table is None:
@@ -355,6 +358,9 @@ def infer_pe_links_sparse_sharded(ids: Sequence[str],
     batch_size = _sparse_batch_clamp(batch_size, T, split_len,
                                      table.max_dup, logger, mesh.n_data)
     tab = _rank_table(table, mesh)
+    # only model rank 0 counts link keys
+    tables = (ck.CooTables(N, mesh.device, coo_slots)
+              if mesh.model_rank == 0 else None)
 
     def one_pass(cap, cap_c):
         logger.info("sharded sparse PE: %s probe, N=%d, depth=%d, "
@@ -365,11 +371,12 @@ def infer_pe_links_sparse_sharded(ids: Sequence[str],
                                 force_bytes=tab.probe != "sortfill")
         shard_ovf = torch.zeros((), dtype=torch.bool, device=mesh.device)
         core = _sparse_core_sharded(tab, mesh, T, cap, cap_c, shard_ovf)
-        coo = _sparse_run(batches, core, N, mesh.device,
-                          expand=mesh.model_rank == 0)
-        ovf = (shard_ovf | (coo is None)).to(torch.int32)
-        return None if int(_reduce_world(ovf, dist.ReduceOp.MAX, mesh)) \
-            else coo
+        coo = _sparse_run(batches, core, mesh.device, tables)
+        # the world's worst outcome: 2 a cap overflow, 1 a full link table
+        code = ((shard_ovf | (coo is None)).to(torch.int32) * 2
+                + int(coo is _TABLE_FULL))
+        worst = int(_reduce_world(code, dist.ReduceOp.MAX, mesh))
+        return None if worst >= 2 else _TABLE_FULL if worst else coo
 
     coo = _sparse_retry(one_pass, cap, cap_c, logger)
     if mesh.backend is not None:
