@@ -8,7 +8,8 @@ Both worlds start once for the module and compute every case, each
 rank writing its results to .npz files; the parametrized tests then
 compare case by case (tolerance 0 throughout: every output is an
 integer). Each sharded case also checks that every rank returned the
-same result."""
+same result. At mesh 1 x 1 the same cases run in this process with no
+world: the mesh's engines are the single-GPU engine's driver."""
 
 import hashlib
 import json
@@ -22,6 +23,8 @@ import pytest
 import torch
 
 from tests.test_pe_infer import _make_batch, _random_refs, _sample_reads
+from tests.test_torch_pe_infer import _port_batch
+from tests.torch_dist_worker import run_job
 from tools.repeat_workload import repeat_workload
 from vstrains_tpu.core.fastq import ReadPairBatch as JReadPairBatch
 from vstrains_tpu.core.fastq import load_read_pairs as j_load_read_pairs
@@ -42,7 +45,7 @@ with open(os.path.join(ROOT, "tests", "data",
                        "torch_port_expected.json")) as _fh:
     METAVIRAL = json.load(_fh)["metaviral"]
 
-SHAPES = [(2, 1), (1, 2), (2, 2)]
+SHAPES = [(1, 1), (2, 1), (1, 2), (2, 2)]
 # case -> (inputs, engine, kwargs); "dup": duplicate runs within the
 # packed probe (max_dup 6), "repeat": max_dup 20 > 16, the classic join
 CASES = {
@@ -74,6 +77,14 @@ def _inputs(name):
         motif = _random_refs(rng, 1, [40])[0]
         refs = [motif + _random_refs(rng, 1, [60])[0] for _ in range(6)]
         fwd, rve = _sample_reads(rng, refs, 96, 30, k)
+    elif name == "mixed":
+        # two read widths, 300 pairs of 30 bp and 100 of 120 bp: the
+        # dense engine's length buckets split them at batch BATCH
+        rng = np.random.RandomState(53)
+        refs = _random_refs(rng, 6, [200, 240, 280, 200, 240, 280])
+        fwd, rve = _sample_reads(rng, refs, 300, 30, k)
+        long_f, long_r = _sample_reads(rng, refs, 100, 120, k)
+        fwd, rve = fwd + long_f, rve + long_r
     else:
         rng = np.random.RandomState(47)
         refs = _random_refs(rng, 6, [70, 90, 110, 130, 150, 170])
@@ -125,7 +136,7 @@ class _World:
 def worlds(tmp_path_factory):
     base = tmp_path_factory.mktemp("worlds")
     ins = {}
-    for name in ("dup", "repeat", "plain"):
+    for name in ("dup", "repeat", "plain", "mixed"):
         refs, fwd, rve, k = _inputs(name)
         b = _make_batch(fwd, rve, k + 1)
         ins[name] = str(base / f"{name}.npz")
@@ -140,12 +151,12 @@ def worlds(tmp_path_factory):
     make_multi_component_dataset(meta, **METAVIRAL["generator"]["kwargs"])
 
     def sharded(shapes):
-        return [dict(kind=drv, inputs=ins[inp], data=d, model=m,
-                     batch_size=BATCH, out=f"{case}_{d}x{m}", **kw)
-                for (d, m) in shapes
-                for case, (inp, drv, kw) in CASES.items()]
+        return [_job(ins, case, d, m) for (d, m) in shapes
+                for case in CASES]
 
     w2_jobs = sharded([(2, 1), (1, 2)]) + [
+        dict(kind="sharded", inputs=ins["mixed"], data=2, model=1,
+             batch_size=BATCH, out="mixed_2x1"),
         dict(kind="sp", inputs=str(base / "sp.npz"), out="sp"),
         dict(kind="multihost", data=os.path.dirname(synth.gfa_path),
              k=SYNTH_K, batch_size=256, out="multihost"),
@@ -153,7 +164,22 @@ def worlds(tmp_path_factory):
              out=str(base / "w2" / "metaviral"))]
     return {2: _World(str(base / "w2"), 2, w2_jobs),
             4: _World(str(base / "w4"), 4, sharded([(2, 2)])),
-            "synth": synth, "metaviral": meta}
+            "synth": synth, "metaviral": meta, "inputs": ins}
+
+
+def _job(ins, case, data, model):
+    """The worker's job for one CASES entry at a (data, model) mesh."""
+    inp, drv, kw = CASES[case]
+    return dict(kind=drv, inputs=ins[inp], data=data, model=model,
+                batch_size=BATCH, out=f"{case}_{data}x{model}", **kw)
+
+
+def _mesh_ranks(worlds, case, data, model):
+    """Every rank's result of a case: from the world of data x model
+    ranks, or at 1 x 1 from this process with no world."""
+    if data * model == 1:
+        return [run_job(_job(worlds["inputs"], case, 1, 1), 0, 1)]
+    return worlds[data * model].ranks(f"{case}_{data}x{model}")
 
 
 def _j_reads(path):
@@ -174,8 +200,9 @@ _FIELDS = {"dense": ("node_mat", "short_mat"),
 @pytest.mark.parametrize("case", list(CASES))
 def test_sharded_equals_jax_sharded(worlds, eight_devices, case, shape):
     """The port's sharded engine on a gloo world of data x model CPU ranks
-    equals JAX's infer_pe_links_sharded / infer_pe_links_sparse_sharded
-    on the virtual mesh of the same shape, on every rank."""
+    (at 1 x 1 in this process, with no world) equals JAX's
+    infer_pe_links_sharded / infer_pe_links_sparse_sharded on the virtual
+    mesh of the same shape, on every rank."""
     data, model = shape
     inp, drv, kw = CASES[case]
     ids, refs, k, reads = _j_reads(os.path.join(
@@ -187,7 +214,7 @@ def test_sharded_equals_jax_sharded(worlds, eight_devices, case, shape):
               **{key: v for key, v in kw.items() if key != "coo_slots"})
     kind = ("sparse" if isinstance(want, JP.PESparseResult) else "dense")
     assert kind == ("dense" if case.startswith("dense") else "sparse")
-    ranks = worlds[data * model].ranks(f"{case}_{data}x{model}")
+    ranks = _mesh_ranks(worlds, case, data, model)
     assert len(ranks) == data * model
     for got in ranks:
         assert str(got["kind"]) == kind
@@ -208,8 +235,53 @@ def test_sharded_cases_cover_both_probes():
     dup = TP.build_kmer_table(_inputs("dup")[0], 12)
     rep = TP.build_kmer_table(_inputs("repeat")[0], 12)
     assert 1 < dup.max_dup <= TP._SORTFILL_MAX_DUP < rep.max_dup
-    assert TM._table_probe(dup) == "sortfill"
-    assert TM._table_probe(rep) == "join"
+    assert TP._route_probe("sort", False, dup, TP._LOG) == "sortfill"
+    assert TP._route_probe("sort", False, rep, TP._LOG) == "join"
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_sharded_mixed_lengths_equal_single_engine(worlds, shape):
+    """A library of two read widths, which the dense engine's length
+    buckets split, through the mesh (1 x 1 in this process, 2 x 1 over
+    gloo): every rank's links equal infer_pe_links'."""
+    data, model = shape
+    path = worlds["inputs"]["mixed"]
+    ids, refs, k, reads = _j_reads(path)
+    reads = _port_batch(reads)
+    assert TP._length_buckets(reads, k + 1, BATCH) is not None
+    want = TP.infer_pe_links(ids, refs, reads, k, batch_size=BATCH,
+                             device="cpu")
+    if data * model == 1:
+        ranks = [run_job(dict(kind="sharded", inputs=path, data=1, model=1,
+                              batch_size=BATCH, out="mixed_1x1"), 0, 1)]
+    else:
+        ranks = worlds[2].ranks("mixed_2x1")
+    assert want.node_mat.sum() > 0
+    for got in ranks:
+        assert str(got["kind"]) == "dense"
+        for f in _FIELDS["dense"]:
+            np.testing.assert_array_equal(got[f], getattr(want, f))
+
+
+def test_sharded_small_input_past_the_cutover_equals_single_engine():
+    """A batch past the dense/sparse cutover on an input of a few hundred
+    pairs: infer_pe_links clamps the batch to the input and runs dense,
+    and the mesh at 1 x 1 returns the same dense result."""
+    refs, fwd, rve, k = _inputs("plain")
+    reads = _port_batch(_make_batch(fwd, rve, k + 1))
+    ids = [str(i) for i in range(len(refs))]
+    batch = 1 << 24
+    assert batch > TP.dense_budget_rows(len(refs))
+    want = TP.infer_pe_links(ids, refs, reads, k, batch_size=batch,
+                             device="cpu")
+    got = TM.infer_pe_links_sharded(ids, refs, reads, k,
+                                    TM.make_mesh(device="cpu"),
+                                    batch_size=batch)
+    assert isinstance(want, TP.PEResult) and isinstance(got, TP.PEResult)
+    assert want.node_mat.sum() > 0
+    for f in _FIELDS["dense"]:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
 
 
 @pytest.mark.parametrize("n_shards", [1, 2, 3, 4])

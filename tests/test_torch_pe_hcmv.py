@@ -85,14 +85,14 @@ def test_hcmv_cut_links_equal_reference(hcmv_cut, route, monkeypatch):
 def test_hcmv_coo_keys_counts_the_expanded_keys(hcmv_cut, monkeypatch):
     ids, seqs, reads, k, _ = hcmv_cut
     expanded = []
-    pairs_np = TP._sparse_pairs_np
+    pairs_np = ck._sparse_pairs_np
 
     def spy(f_nodes, r_nodes, n):
         pe, st = pairs_np(f_nodes, r_nodes, n)
         expanded.append(pe.size + st.size)
         return pe, st
 
-    monkeypatch.setattr(TP, "_sparse_pairs_np", spy)
+    monkeypatch.setattr(ck, "_sparse_pairs_np", spy)
     before = tracing.totals()["counters"]
     TP.infer_pe_links(ids, seqs, reads, k, batch_size=BATCH,
                       stats_mode="sparse", device="cpu")

@@ -106,9 +106,11 @@ def test_wire_and_byte_feeds_agree():
         for kind, payload in TP._wire_batches(batch, 32,
                                               force_bytes=force_bytes):
             kinds.append(kind)
-            q1, h2, valid, lens = TP._hash_batch(kind, payload, T,
-                                                 tab.split_len, "cpu")
-            TP._batch_core(q1, h2, valid, lens, tab, *acc)
+            feed = TP._upload_batch(kind, payload, "cpu")
+            q1, h2, valid, lens = TP._batch_hashes(kind, feed, T,
+                                                   tab.split_len)
+            TP._batch_pairs(*TP._batch_stats(q1, h2, valid, tab), lens, tab,
+                            *acc)
         assert set(kinds) == {"bytes" if force_bytes else "wire"}
         accs.append(acc)
     assert accs[0][0].sum() > 0

@@ -364,16 +364,16 @@ def _host_coo(lists, N):
     chunks = [[], [], [], []]
     for out in lists:
         B = out.shape[0] // 2
-        for t, keys in enumerate(TP._sparse_pairs_np(out[:B], out[B:], N)):
+        for t, keys in enumerate(ck._sparse_pairs_np(out[:B], out[B:], N)):
             u, c = np.unique(keys, return_counts=True)
             chunks[2 * t].append(u)
             chunks[2 * t + 1].append(c)
-    return (*TP._merge_coo(chunks[0], chunks[1]),
-            *TP._merge_coo(chunks[2], chunks[3]))
+    return (*ck._merge_coo(chunks[0], chunks[1]),
+            *ck._merge_coo(chunks[2], chunks[3]))
 
 
 def _expanded(lists, N):
-    return sum(k.size for out in lists for k in TP._sparse_pairs_np(
+    return sum(k.size for out in lists for k in ck._sparse_pairs_np(
         out[:out.shape[0] // 2], out[out.shape[0] // 2:], N))
 
 

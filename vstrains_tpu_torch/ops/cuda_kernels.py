@@ -686,24 +686,84 @@ class CooTables:
         self.slots[t] *= 4
 
 
+# the host COO, coo_accum's plain version (numpy, as in the JAX package)
+
+def _ragged_cross_np(av, ao, bv, bo, na, nb, N, triu=False):
+    """Cross-product link keys over ragged per-read node lists.
+
+    (av, ao, na) are the flattened values / row offsets / row counts of
+    one side; work is O(actual pairs). With triu only position pairs
+    i <= j survive (ascending same-end pairs, diagonal included)."""
+    per = (na * nb).astype(np.int64)
+    P = int(per.sum())
+    if not P:
+        return np.zeros(0, np.int64)
+    starts = np.zeros(len(per), np.int64)
+    np.cumsum(per[:-1], out=starts[1:])
+    row = np.repeat(np.arange(len(per)), per)
+    local = np.arange(P, dtype=np.int64) - starts[row]
+    i = local // nb[row]
+    j = local % nb[row]
+    keys = av[ao[row] + i] * N + bv[bo[row] + j]
+    if triu:
+        keys = keys[i <= j]
+    return keys
+
+
+def _sparse_pairs_np(f_nodes: np.ndarray, r_nodes: np.ndarray, N: int):
+    """COO link keys for one batch from compacted saturated node lists:
+    PE pairs are the full fwd x rve cross product; same-end pairs are
+    ascending (u at or before v in the per-read list, diagonal included),
+    as the reference pair loops (PE_Inference.py:174-188)."""
+    fm = f_nodes >= 0
+    rm = r_nodes >= 0
+    nf = fm.sum(1).astype(np.int64)
+    nr = rm.sum(1).astype(np.int64)
+    fv = f_nodes[fm].astype(np.int64)
+    rv = r_nodes[rm].astype(np.int64)
+    fo = np.zeros(len(nf), np.int64)
+    np.cumsum(nf[:-1], out=fo[1:])
+    ro = np.zeros(len(nr), np.int64)
+    np.cumsum(nr[:-1], out=ro[1:])
+    pe = _ragged_cross_np(fv, fo, rv, ro, nf, nr, N)
+    shorts = [
+        _ragged_cross_np(fv, fo, fv, fo, nf, nf, N, triu=True),
+        _ragged_cross_np(rv, ro, rv, ro, nr, nr, N, triu=True),
+    ]
+    return pe, np.concatenate(shorts)
+
+
+def _merge_coo(key_chunks, count_chunks):
+    """Merge per-batch (keys, counts) COO chunks into one sorted unique
+    (keys, counts) pair (sort + reduceat)."""
+    if not key_chunks:
+        return (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    keys = np.concatenate(key_chunks)
+    counts = np.concatenate(count_chunks)
+    if keys.size == 0:
+        return (keys, counts.astype(np.int64))
+    order = np.argsort(keys, kind="stable")
+    keys = keys[order]
+    counts = counts[order]
+    starts = np.flatnonzero(
+        np.concatenate([[True], keys[1:] != keys[:-1]]))
+    return keys[starts], np.add.reduceat(counts.astype(np.int64), starts)
+
+
 def coo_accum_plain(out: torch.Tensor, ovf: torch.Tensor,
                     tables: CooTables) -> None:
     """The JAX package's host COO, a batch at a time: the batch's keys
-    from pe_infer._sparse_pairs_np, made unique (np.unique) and merged
-    into each table's keys (pe_infer._merge_coo). A table whose keys
-    outgrow its slots keeps the first of them and is marked full; while
-    a table is full, batches add keys to COO_KEYS only."""
-    # the host COO is the engine's own code (the engine imports this
-    # module)
-    from vstrains_tpu_torch.ops import pe_infer
-
+    from _sparse_pairs_np, made unique (np.unique) and merged into each
+    table's keys (_merge_coo). A table whose keys outgrow its
+    slots keeps the first of them and is marked full; while a table is
+    full, batches add keys to COO_KEYS only."""
     stats = tables.stats
     stats[COO_OVF] = int(bool(ovf))
     if stats[COO_OVF]:
         return
     sn = out.numpy()
     b = sn.shape[0] // 2
-    keys = pe_infer._sparse_pairs_np(sn[:b], sn[b:], tables.num_nodes)
+    keys = _sparse_pairs_np(sn[:b], sn[b:], tables.num_nodes)
     stats[COO_KEYS] += sum(k.size for k in keys)
     if stats[COO_FULL:].any():
         return
@@ -711,7 +771,7 @@ def coo_accum_plain(out: torch.Tensor, ovf: torch.Tensor,
         tab = tables.tabs[t].numpy()
         fill = int(stats[COO_FILL + t])
         u, c = np.unique(k, return_counts=True)
-        mk, mc = pe_infer._merge_coo([tab[:fill, 0], u], [tab[:fill, 1], c])
+        mk, mc = _merge_coo([tab[:fill, 0], u], [tab[:fill, 1], c])
         n = min(mk.size, tab.shape[0])
         tab[:n, 0] = mk[:n]
         tab[:n, 1] = mc[:n]

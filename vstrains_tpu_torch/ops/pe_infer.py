@@ -43,6 +43,11 @@ compact into a (2B, cap) list, whose link keys the CUDA kernel
 `coo_accum` (csrc/coo_accum.cu) counts into two hash tables that live
 for the pass, sorted into COO form at its end (`PESparseResult`).
 
+One driver (`_engine`) serves one process and each rank of a (data,
+model) mesh: parallel/mesh.py passes its rows, a table shard's collectives
+and the end of a pass over the world as `_Seams`; the probe, the routes
+and clamps, the length buckets and the drain are decided here alone.
+
 On CPU tensors each kernel wrapper runs its plain torch version instead
 (`--device cpu`, the CPU tests). Every probe mode and stats mode of the
 JAX engine is served, with the JAX engine's routing and bit-equal
@@ -590,13 +595,6 @@ def _batch_pairs(cnt, kmin, lens, tab: _DeviceTable, acc_nm,
     ck.pair_counts(sat[:B], sat[B:], acc_nm, acc_sm)
 
 
-def _batch_core(q1, h2, valid, lens, tab: _DeviceTable, acc_nm, acc_sm):
-    """Probe + stats + saturation + pair counts of one stacked end-batch,
-    added into the int64 accumulators in place."""
-    cnt, kmin = _batch_stats(q1, h2, valid, tab)
-    _batch_pairs(cnt, kmin, lens, tab, acc_nm, acc_sm)
-
-
 def _upload_batch(kind: str, payload, dev) -> tuple:
     """One batch that _wire_batches yielded, on `dev`: (wire,) or (codes,
     lens) of its stacked end-batch. A byte batch is stacked in the span
@@ -622,14 +620,6 @@ def _batch_hashes(kind: str, feed: tuple, T: int, split_len: int):
     return (*ck.window_hashes_bytes(codes, lens, split_len), lens)
 
 
-def _hash_batch(kind: str, payload, T: int, split_len: int, dev):
-    """Window hashes of one batch that _wire_batches yielded, on `dev`
-    (the hashes' launch in the span `pe.queue`)."""
-    feed = _upload_batch(kind, payload, dev)
-    with span("pe.queue"):
-        return _batch_hashes(kind, feed, T, split_len)
-
-
 # --------------------------------------------------------------------------
 # device: sparse per-batch stats (large-N engine)
 #
@@ -637,7 +627,8 @@ def _hash_batch(kind: str, payload, T: int, split_len: int, dev):
 # row-sorted by node id (CUDA kernel `sort_rows`), per-(read, node) count
 # and lowest window fall out of running scans over each sorted row, and
 # the saturated nodes compact into a small (2B, cap) list. Link counts
-# accumulate on the host as (u * N + v) -> count COO pairs.
+# accumulate as (u * N + v) -> count keys in the device's link tables
+# (CUDA kernel `coo_accum`).
 # --------------------------------------------------------------------------
 
 _I32_MAX = 2**31 - 1
@@ -877,72 +868,6 @@ def _sparse_merge_sat_tail(nodes, cnts, kmins, lens, seq_lens,
 
 
 # --------------------------------------------------------------------------
-# host: sparse COO link keys (numpy, as in the JAX package)
-# --------------------------------------------------------------------------
-
-def _ragged_cross_np(av, ao, bv, bo, na, nb, N, triu=False):
-    """Cross-product link keys over ragged per-read node lists.
-
-    (av, ao, na) are the flattened values / row offsets / row counts of
-    one side; work is O(actual pairs). With triu only position pairs
-    i <= j survive (ascending same-end pairs, diagonal included)."""
-    per = (na * nb).astype(np.int64)
-    P = int(per.sum())
-    if not P:
-        return np.zeros(0, np.int64)
-    starts = np.zeros(len(per), np.int64)
-    np.cumsum(per[:-1], out=starts[1:])
-    row = np.repeat(np.arange(len(per)), per)
-    local = np.arange(P, dtype=np.int64) - starts[row]
-    i = local // nb[row]
-    j = local % nb[row]
-    keys = av[ao[row] + i] * N + bv[bo[row] + j]
-    if triu:
-        keys = keys[i <= j]
-    return keys
-
-
-def _sparse_pairs_np(f_nodes: np.ndarray, r_nodes: np.ndarray, N: int):
-    """COO link keys for one batch from compacted saturated node lists:
-    PE pairs are the full fwd x rve cross product; same-end pairs are
-    ascending (u at or before v in the per-read list, diagonal included),
-    as the reference pair loops (PE_Inference.py:174-188)."""
-    fm = f_nodes >= 0
-    rm = r_nodes >= 0
-    nf = fm.sum(1).astype(np.int64)
-    nr = rm.sum(1).astype(np.int64)
-    fv = f_nodes[fm].astype(np.int64)
-    rv = r_nodes[rm].astype(np.int64)
-    fo = np.zeros(len(nf), np.int64)
-    np.cumsum(nf[:-1], out=fo[1:])
-    ro = np.zeros(len(nr), np.int64)
-    np.cumsum(nr[:-1], out=ro[1:])
-    pe = _ragged_cross_np(fv, fo, rv, ro, nf, nr, N)
-    shorts = [
-        _ragged_cross_np(fv, fo, fv, fo, nf, nf, N, triu=True),
-        _ragged_cross_np(rv, ro, rv, ro, nr, nr, N, triu=True),
-    ]
-    return pe, np.concatenate(shorts)
-
-
-def _merge_coo(key_chunks, count_chunks):
-    """Merge per-batch (keys, counts) COO chunks into one sorted unique
-    (keys, counts) pair (sort + reduceat)."""
-    if not key_chunks:
-        return (np.zeros(0, np.int64), np.zeros(0, np.int64))
-    keys = np.concatenate(key_chunks)
-    counts = np.concatenate(count_chunks)
-    if keys.size == 0:
-        return (keys, counts.astype(np.int64))
-    order = np.argsort(keys, kind="stable")
-    keys = keys[order]
-    counts = counts[order]
-    starts = np.flatnonzero(
-        np.concatenate([[True], keys[1:] != keys[:-1]]))
-    return keys[starts], np.add.reduceat(counts.astype(np.int64), starts)
-
-
-# --------------------------------------------------------------------------
 # compact wire format
 #
 # 2-bit packed bases + u16 lengths, one uint8 row per pair: fwd codes |
@@ -1140,6 +1065,73 @@ def _route_probe(probe_mode: str, sparse: bool, table: KmerTable,
     return "join"
 
 
+def _is_sparse(stats_mode: str, batch_size: int, num_nodes: int) -> bool:
+    """The dense/sparse cutover: "auto" takes the sparse engine for a
+    batch past dense_budget_rows (looked up by name at each call)."""
+    return stats_mode == "sparse" or (
+        stats_mode == "auto" and batch_size > dense_budget_rows(num_nodes))
+
+
+def _empty_result(ids, reads: ReadPairBatch, num_nodes: int,
+                  sparse: bool = False):
+    """The links of an input with no pairs or a table with no entries:
+    the all-zero PEResult, which the engine returns on either route (as
+    the JAX engine does), or with `sparse` the empty PESparseResult, for
+    the callers that promise one."""
+    if sparse:
+        z = np.zeros(0, np.int64)
+        return PESparseResult(list(ids), z, z.copy(), z.copy(), z.copy(),
+                              reads.n_reads, reads.short_reads,
+                              reads.used_reads)
+    z = np.zeros((num_nodes, num_nodes), dtype=np.int64)
+    return PEResult(list(ids), z, z.copy(), reads.n_reads,
+                    reads.short_reads, reads.used_reads)
+
+
+class _Seams:
+    """Where a rank of a (data, model) mesh runs the engine driver
+    differently from one process. This class is one process's (`_ONE`);
+    parallel/mesh.py passes a subclass for its ranks. Three seams:
+
+      rows: the batches this rank runs (`rows`; `n_data` ranks split
+        each batch);
+      a table shard's partials: the part of the table this rank probes
+        (`shard`), a batch's dense stats (`stats`) or sparse saturated
+        lists (`lists`) made whole, and whether this rank counts the
+        links (`counts`);
+      the end of a pass: the dense accumulators before the drain
+        (`end_dense`), a sparse pass's outcome (`end_pass`) and the
+        final COO (`merge`)."""
+    n_data = 1
+    counts = True
+
+    def rows(self, reads: ReadPairBatch, batch_size: int,
+             force_bytes: bool = False):
+        return _wire_batches(reads, batch_size, force_bytes)
+
+    def shard(self, table: KmerTable) -> KmerTable:
+        return table
+
+    def stats(self, cnt, kmin):
+        return cnt, kmin
+
+    def lists(self, q1, h2, valid, lens, tab: _DeviceTable, cap: int,
+              cap_c: int):
+        return _sparse_core(q1, h2, valid, lens, tab, cap, cap_c)[:2]
+
+    def end_dense(self, acc_nm, acc_sm) -> None:
+        pass
+
+    def end_pass(self, coo):
+        return coo
+
+    def merge(self, coo):
+        return coo
+
+
+_ONE = _Seams()
+
+
 def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
                    reads: ReadPairBatch, kmer_size: int,
                    batch_size: int = 16384,
@@ -1164,8 +1156,19 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
     engine always joins); "sortjoin" forces the join, and "searchsorted"
     is its alias; "lookup" probes a bucket index of the table, built for
     this call."""
-    logger = logger or _LOG
-    dev = resolve_device(device)
+    return _engine(ids, seqs, reads, kmer_size, batch_size, probe_mode,
+                   stats_mode, table, logger or _LOG, resolve_device(device))
+
+
+def _engine(ids, seqs, reads: ReadPairBatch, kmer_size: int,
+            batch_size: int, probe_mode: str, stats_mode: str,
+            table: Optional[KmerTable], logger: logging.Logger, dev,
+            seams: _Seams = _ONE, cap: int = 16, cap_c: int = 32,
+            coo_slots: Optional[int] = None):
+    """The engine driver, infer_pe_links' on the resolved device `dev`,
+    with one process's seams or a mesh rank's (`seams`); `cap`, `cap_c`
+    and `coo_slots` are the sparse engine's first caps and link-table
+    size (_infer_pe_links_sparse)."""
     split_len = kmer_size + 1
     if probe_mode not in _PROBE_MODES:
         raise ValueError(f"probe_mode {probe_mode!r} is not one of "
@@ -1179,10 +1182,8 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
     logger.info("kmer table: %d entries, max_dup=%d, %d nodes",
                 table.num_entries, table.max_dup, N)
 
-    budget_rows = dense_budget_rows(N)
-    sparse = (stats_mode == "sparse"
-              or (stats_mode == "auto" and batch_size > budget_rows))
-    # don't pad small datasets up to a huge batch
+    # don't pad small datasets up to a huge batch; "auto" routes the
+    # clamped batch
     if reads.num_pairs and batch_size > reads.num_pairs:
         clamped = 512
         while clamped < reads.num_pairs:
@@ -1191,14 +1192,10 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
             logger.info("pe batch clamped %d -> %d for %d pairs",
                         batch_size, clamped, reads.num_pairs)
             batch_size = clamped
-            if stats_mode == "auto":
-                sparse = batch_size > budget_rows
+    sparse = _is_sparse(stats_mode, batch_size, N)
 
     if reads.num_pairs == 0 or table.num_entries == 0:
-        node_mat = np.zeros((N, N), dtype=np.int64)
-        short_mat = np.zeros((N, N), dtype=np.int64)
-        return PEResult(list(ids), node_mat, short_mat, reads.n_reads,
-                        reads.short_reads, reads.used_reads)
+        return _empty_result(ids, reads, N)
 
     # the exact-integer saturation test needs count*rlen < 2^31, i.e.
     # rlen <= ~46k; PE reads are hundreds of bp, so fail loud rather
@@ -1211,11 +1208,11 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
             "saturation range (~46 kb); this engine targets paired-end "
             "short reads")
 
-    tab = _device_table(table, _route_probe(probe_mode, sparse, table,
-                                            logger), dev)
+    tab = _device_table(seams.shard(table),
+                        _route_probe(probe_mode, sparse, table, logger), dev)
     if sparse:
         return _infer_pe_links_sparse(ids, table, tab, reads, batch_size,
-                                      logger)
+                                      logger, cap, cap_c, coo_slots, seams)
     acc_nm = torch.zeros((N, N), dtype=torch.int64, device=dev)
     acc_sm = torch.zeros((N, N), dtype=torch.int64, device=dev)
 
@@ -1236,12 +1233,16 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
 
     for p in parts:
         Tp = max(p.fwd_codes.shape[1], p.rve_codes.shape[1])
-        for kind, payload in _wire_batches(p, batch_size):
+        for kind, payload in seams.rows(p, batch_size):
             feed = _upload_batch(kind, payload, dev)
             with span("pe.queue"):
-                _batch_core(*_batch_hashes(kind, feed, Tp, split_len), tab,
-                            acc_nm, acc_sm)
+                q1, h2, valid, lens = _batch_hashes(kind, feed, Tp,
+                                                    split_len)
+                cnt, kmin = seams.stats(*_batch_stats(q1, h2, valid, tab))
+                if seams.counts:
+                    _batch_pairs(cnt, kmin, lens, tab, acc_nm, acc_sm)
 
+    seams.end_dense(acc_nm, acc_sm)
     with span("pe.drain"):
         node_mat, short_mat = _drain_dense(acc_nm, acc_sm)
     return PEResult(list(ids), node_mat, short_mat,
@@ -1264,8 +1265,8 @@ def _drain_dense(*accs: torch.Tensor) -> tuple:
     if dev.type != "cuda":
         out = tuple(a.cpu().numpy() for a in accs)
     else:
-        host = tuple(torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-                     for a in accs)
+        host = tuple(torch.empty(a.shape, dtype=a.dtype, device="cpu",
+                                 pin_memory=True) for a in accs)
         for h, a in zip(host, accs):
             h.copy_(a, non_blocking=True)
         torch.cuda.current_stream(dev).synchronize()
@@ -1279,20 +1280,21 @@ def _infer_pe_links_sparse(ids, table: KmerTable, tab: _DeviceTable,
                            reads: ReadPairBatch, batch_size: int,
                            logger: logging.Logger, cap: int = 16,
                            cap_c: int = 32,
-                           coo_slots: Optional[int] = None
-                           ) -> PESparseResult:
+                           coo_slots: Optional[int] = None,
+                           seams: _Seams = _ONE) -> PESparseResult:
     """Large-N engine: the same probes, sparse per-batch stats and link
     keys counted into hash tables on the device; the footprint grows with
     the distinct links, not with N². The classic probe takes the byte
     feed, as in the JAX package. A cap overflow retries the whole run at
     4x the caps with the same table on the device. `coo_slots` sets the
-    link tables' first size (default ck.coo_table_slots(N))."""
+    link tables' first size (default ck.coo_table_slots(N)); a rank that
+    does not count the links (`seams.counts`) keeps no tables."""
     N = tab.num_nodes
     dev = tab.h1.device
     T = max(reads.fwd_codes.shape[1], reads.rve_codes.shape[1])
     batch_size = _sparse_batch_clamp(batch_size, T, tab.split_len,
-                                     table.max_dup, logger)
-    tables = ck.CooTables(N, dev, coo_slots)
+                                     table.max_dup, logger, seams.n_data)
+    tables = ck.CooTables(N, dev, coo_slots) if seams.counts else None
 
     def one_pass(cap, cap_c):
         logger.info("sparse PE stats path: N=%d, cap=%d, depth=%d, "
@@ -1301,16 +1303,16 @@ def _infer_pe_links_sparse(ids, table: KmerTable, tab: _DeviceTable,
         def core(kind, payload):
             feed = _upload_batch(kind, payload, dev)
             with span("pe.queue"):
-                out, ovf, _ = _sparse_core(
+                return seams.lists(
                     *_batch_hashes(kind, feed, T, tab.split_len), tab, cap,
                     cap_c)
-            return out, ovf
 
-        batches = _wire_batches(reads, batch_size,
-                                force_bytes=tab.probe != "sortfill")
-        return _sparse_run(batches, core, dev, tables)
+        batches = seams.rows(reads, batch_size,
+                             force_bytes=tab.probe != "sortfill")
+        return seams.end_pass(_sparse_run(batches, core, dev, tables))
 
-    pk, pc, sk, sc = _sparse_retry(one_pass, cap, cap_c, logger)
+    pk, pc, sk, sc = seams.merge(_sparse_retry(one_pass, cap, cap_c,
+                                               logger))
     return PESparseResult(list(ids), pk, pc, sk, sc, reads.n_reads,
                           reads.short_reads, reads.used_reads)
 

@@ -30,14 +30,13 @@ import logging
 import os
 from typing import Optional, Sequence
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
 from vstrains_tpu_torch.core.fastq import ReadPairBatch, load_read_pairs
 from vstrains_tpu_torch.device import resolve_device
 from vstrains_tpu_torch.ops.pe_infer import (PEResult, PESparseResult,
-                                             dense_budget_rows,
+                                             _empty_result, _is_sparse,
                                              infer_pe_links)
 from vstrains_tpu_torch.parallel.collectives import all_reduce, world_size
 from vstrains_tpu_torch.parallel.mesh import merge_coo_ranks
@@ -122,18 +121,14 @@ def infer_pe_links_multihost(ids: Sequence[str], seqs: Sequence[str],
     engine is the sparse COO engine, and the COO chunks are merged
     instead (a PESparseResult)."""
     logger = logger or _LOG
-    sparse = stats_mode == "sparse" or (
-        stats_mode == "auto" and batch_size > dense_budget_rows(len(seqs)))
+    sparse = _is_sparse(stats_mode, batch_size, len(seqs))
     local = infer_pe_links(ids, seqs, local_reads, kmer_size,
                            batch_size=batch_size,
                            stats_mode="sparse" if sparse else "dense",
                            logger=logger, device=device)
     if sparse and isinstance(local, PEResult):
         # an empty stripe (or table): the engine's all-zero matrices
-        z = np.zeros(0, np.int64)
-        local = PESparseResult(list(ids), z, z.copy(), z.copy(), z.copy(),
-                               local.n_reads, local.short_reads,
-                               local.used_reads)
+        local = _empty_result(ids, local_reads, 0, sparse=True)
     if world_size() == 1:
         return local
     backend = dist.get_backend()

@@ -19,7 +19,12 @@ Parallelism axes (new design in the JAX package, kept here):
         right neighbour's block.
 
 There is no shard_map: a rank runs each step on its own shard with
-explicit collectives (parallel/collectives.py). Every rank passes the
+explicit collectives (parallel/collectives.py). The DP x TP engines are
+the single-GPU engine's driver (ops/pe_infer._engine) with three seams
+filled in by `_RankSeams`: this data rank's rows of each batch, what a
+table shard does with its partials, and the end of a pass over the
+world; every other decision (probe, routes, clamps, length buckets,
+drain) is made in ops/pe_infer alone. Every rank passes the
 same full ReadPairBatch, as the JAX package's single controller does,
 and every rank returns the identical merged result. Ranks lie
 data-major, as make_mesh reshapes the JAX device list: rank =
@@ -54,12 +59,10 @@ from vstrains_tpu_torch.core.fastq import ReadPairBatch
 from vstrains_tpu_torch.device import resolve_device
 from vstrains_tpu_torch.ops import cuda_kernels as ck
 from vstrains_tpu_torch.ops.pe_infer import (
-    _INF, _SORTFILL_MAX_DUP, _TABLE_FULL, KmerTable, PEResult,
-    PESparseResult, _batch_pairs, _batch_stats, _build_sortfill_payloads,
-    _device_table, _hash_batch, _merge_coo, _slot_planes, _sortfill_node_bits,
-    _sparse_batch_clamp, _sparse_merge_sat_tail, _sparse_retry, _sparse_run,
-    _sparse_run_stats_compact, _sparse_sat_tail, _wire_batches,
-    build_kmer_table, dense_budget_rows)
+    _INF, _TABLE_FULL, KmerTable, PEResult, PESparseResult, _DeviceTable,
+    _Seams, _build_sortfill_payloads, _empty_result, _engine, _slot_planes,
+    _sparse_merge_sat_tail, _sparse_run_stats_compact, _wire_batches,
+    build_kmer_table)
 from vstrains_tpu_torch.parallel.collectives import (all_gather_cat,
                                                      all_gather_ragged,
                                                      all_reduce, world_size)
@@ -181,24 +184,6 @@ def shard_sortfill_payloads(table: KmerTable, n_shards: int,
                      for s in range(n_shards)])
 
 
-def _table_probe(table: KmerTable) -> str:
-    """The sharded engines' probe: the packed sortfill probe where the
-    graph fits its packing (node ids of at most 18 bits, duplicate runs
-    of at most 16), the classic join elsewhere."""
-    fits = (_sortfill_node_bits(table.num_nodes) is not None
-            and table.max_dup <= _SORTFILL_MAX_DUP)
-    return "sortfill" if fits else "join"
-
-
-def _rank_table(table: KmerTable, mesh: Mesh):
-    """This rank's device table: the whole table (DP) or its model
-    shard (TP), for the sharded engines' probe."""
-    probe = _table_probe(table)
-    part = (table if mesh.n_model == 1
-            else _shard(table, mesh.n_model, mesh.model_rank))
-    return _device_table(part, probe, mesh.device)
-
-
 def _rank_batches(reads: ReadPairBatch, batch_size: int, mesh: Mesh,
                   force_bytes: bool = False):
     """This data rank's rows of every batch, fed as _wire_batches feeds
@@ -227,8 +212,74 @@ def _reduce_world(t: torch.Tensor, op, mesh: Mesh) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
-# DP x TP dense engine
+# DP x TP engines: the single-GPU driver (ops/pe_infer._engine) with this
+# rank's seams
 # --------------------------------------------------------------------------
+
+class _RankSeams(_Seams):
+    """A mesh rank's seams of the engine driver: this data rank's rows of
+    each batch; this model rank's table shard, whose partials a (sum,
+    min) all-reduce (dense) or a gather and one merge (sparse) over the
+    model group make whole, after which only model rank 0 counts the
+    links; the world's reduce before the dense drain, its agreement on a
+    sparse pass's outcome and the COO merged over the world. A shard's
+    own candidate overflow is ORed into `shard_ovf` on the device, for
+    the pass's agreement, with no collective a batch."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.n_data = mesh.n_data
+        self.counts = mesh.model_rank == 0
+        self.shard_ovf = torch.zeros((), dtype=torch.bool,
+                                     device=mesh.device)
+
+    def rows(self, reads, batch_size, force_bytes=False):
+        return _rank_batches(reads, batch_size, self.mesh, force_bytes)
+
+    def shard(self, table):
+        m = self.mesh
+        return (table if m.n_model == 1
+                else _shard(table, m.n_model, m.model_rank))
+
+    def stats(self, cnt, kmin):
+        m = self.mesh
+        if m.n_model > 1:
+            all_reduce(cnt, dist.ReduceOp.SUM, m.model_group, m.backend)
+            all_reduce(kmin, dist.ReduceOp.MIN, m.model_group, m.backend)
+        return cnt, kmin
+
+    def lists(self, q1, h2, valid, lens, tab: _DeviceTable, cap, cap_c):
+        m = self.mesh
+        if m.n_model == 1:
+            return super().lists(q1, h2, valid, lens, tab, cap, cap_c)
+        node_key, kidx_v = _slot_planes(q1, h2, valid, tab)
+        nodes, cnts, kmins, o_c = _sparse_run_stats_compact(
+            node_key, kidx_v, tab.num_nodes, q1.shape[1], cap_c)
+        nodes, cnts, kmins = (
+            all_gather_cat(x, m.model_group, m.backend, dim=1)
+            for x in (nodes, cnts, kmins))
+        self.shard_ovf.logical_or_(o_c)
+        out, o, _ = _sparse_merge_sat_tail(nodes, cnts, kmins, lens,
+                                           tab.seq_lens, tab.split_len, cap)
+        return out, o
+
+    def end_dense(self, acc_nm, acc_sm):
+        _reduce_world(acc_nm, dist.ReduceOp.SUM, self.mesh)
+        _reduce_world(acc_sm, dist.ReduceOp.SUM, self.mesh)
+
+    def end_pass(self, coo):
+        # the world's worst outcome: 2 a cap overflow, 1 a full link table
+        code = ((self.shard_ovf | (coo is None)).to(torch.int32) * 2
+                + int(coo is _TABLE_FULL))
+        self.shard_ovf.zero_()
+        worst = int(_reduce_world(code, dist.ReduceOp.MAX, self.mesh))
+        return None if worst >= 2 else _TABLE_FULL if worst else coo
+
+    def merge(self, coo):
+        m = self.mesh
+        return (coo if m.backend is None
+                else merge_coo_ranks(coo, m.backend, m.device))
+
 
 def infer_pe_links_sharded(ids: Sequence[str], seqs: Sequence[str],
                            reads: ReadPairBatch, kmer_size: int,
@@ -238,88 +289,15 @@ def infer_pe_links_sharded(ids: Sequence[str], seqs: Sequence[str],
     """Data+tensor-parallel PE-link inference over `mesh` (its device is
     the run's device). Every rank of the mesh calls it with the same
     arguments and gets the same result, bit-identical to
-    ops.pe_infer.infer_pe_links for any mesh shape.
-
-    The dense/sparse cutover mirrors the single-GPU engine
-    (dense_budget_rows): a batch past it routes to the sharded sparse
-    engine, which returns a PESparseResult."""
+    ops.pe_infer.infer_pe_links for any mesh shape: it is that engine's
+    driver with this rank's seams, so its routes (the dense/sparse
+    cutover and the small-input clamp), length buckets, read-length guard
+    and page-locked drain are the single-GPU engine's."""
     logger = logger or _LOG
-    split_len = kmer_size + 1
-    table = build_kmer_table(seqs, split_len)
-    N = table.num_nodes
-    logger.info("sharded pe: mesh data=%d model=%d, table %d entries",
-                mesh.n_data, mesh.n_model, table.num_entries)
-    if stats_mode == "sparse" or (stats_mode == "auto"
-                                  and batch_size > dense_budget_rows(N)):
-        return infer_pe_links_sparse_sharded(
-            ids, seqs, reads, kmer_size, mesh, batch_size=batch_size,
-            logger=logger, table=table)
-    if reads.num_pairs == 0 or table.num_entries == 0:
-        z = np.zeros((N, N), dtype=np.int64)
-        return PEResult(list(ids), z, z.copy(), reads.n_reads,
-                        reads.short_reads, reads.used_reads)
-
-    dev = mesh.device
-    tab = _rank_table(table, mesh)
-    logger.info("sharded dense probe: %s (depth %d, %d table shard(s))",
-                tab.probe, tab.depth, mesh.n_model)
-    acc_nm = torch.zeros((N, N), dtype=torch.int64, device=dev)
-    acc_sm = torch.zeros((N, N), dtype=torch.int64, device=dev)
-    T = max(reads.fwd_codes.shape[1], reads.rve_codes.shape[1])
-    for kind, payload in _rank_batches(reads, batch_size, mesh):
-        q1, h2, valid, lens = _hash_batch(kind, payload, T, split_len, dev)
-        cnt, kmin = _batch_stats(q1, h2, valid, tab)
-        if mesh.n_model > 1:
-            all_reduce(cnt, dist.ReduceOp.SUM, mesh.model_group,
-                       mesh.backend)
-            all_reduce(kmin, dist.ReduceOp.MIN, mesh.model_group,
-                       mesh.backend)
-        if mesh.model_rank == 0:
-            _batch_pairs(cnt, kmin, lens, tab, acc_nm, acc_sm)
-    _reduce_world(acc_nm, dist.ReduceOp.SUM, mesh)
-    _reduce_world(acc_sm, dist.ReduceOp.SUM, mesh)
-    return PEResult(list(ids), acc_nm.cpu().numpy(), acc_sm.cpu().numpy(),
-                    reads.n_reads, reads.short_reads, reads.used_reads)
-
-
-# --------------------------------------------------------------------------
-# DP x TP sparse engine (large-N path): nothing N^2-shaped; reads split
-# over data ranks, the table and its sortfill payloads over model ranks.
-# --------------------------------------------------------------------------
-
-def _sparse_core_sharded(tab, mesh: Mesh, T: int, cap: int, cap_c: int,
-                         shard_ovf: torch.Tensor):
-    """The sparse engine's per-batch core on this rank: (kind, payload)
-    -> (out, overflow). DP runs the single-GPU tail on the rank's rows;
-    TP compacts the shard's candidates, gathers them over the model group
-    and merges them, so every model rank holds the same rows and the same
-    overflow flag (and ends a pass at the same batch). A shard's own
-    candidate overflow is ORed into `shard_ovf` on the device, for the
-    pass's world-wide agreement, with no collective a batch."""
-    N = tab.num_nodes
-    split_len = tab.split_len
-
-    def core(kind, payload):
-        q1, h2, valid, lens = _hash_batch(kind, payload, T, split_len,
-                                          mesh.device)
-        node_key, kidx_v = _slot_planes(q1, h2, valid, tab)
-        K = q1.shape[1]
-        if mesh.n_model == 1:
-            out, o, _ = _sparse_sat_tail(node_key, kidx_v, lens,
-                                         tab.seq_lens, split_len, cap,
-                                         kmax=K, cap_c=cap_c)
-            return out, o
-        nodes, cnts, kmins, o_c = _sparse_run_stats_compact(
-            node_key, kidx_v, N, K, cap_c)
-        nodes, cnts, kmins = (
-            all_gather_cat(x, mesh.model_group, mesh.backend, dim=1)
-            for x in (nodes, cnts, kmins))
-        shard_ovf.logical_or_(o_c)
-        out, o, _ = _sparse_merge_sat_tail(nodes, cnts, kmins, lens,
-                                           tab.seq_lens, split_len, cap)
-        return out, o
-
-    return core
+    logger.info("sharded pe: mesh data=%d model=%d", mesh.n_data,
+                mesh.n_model)
+    return _engine(ids, seqs, reads, kmer_size, batch_size, "sort",
+                   stats_mode, None, logger, mesh.device, _RankSeams(mesh))
 
 
 def infer_pe_links_sparse_sharded(ids: Sequence[str],
@@ -342,47 +320,12 @@ def infer_pe_links_sparse_sharded(ids: Sequence[str],
     256, as the JAX package does; a full link table on any rank restarts
     it at the same caps (`coo_slots`: the tables' first size, as in
     pe_infer._infer_pe_links_sparse)."""
-    logger = logger or _LOG
-    split_len = kmer_size + 1
-    if table is None:
-        table = build_kmer_table(seqs, split_len)
-    N = table.num_nodes
-    if reads.num_pairs == 0 or table.num_entries == 0:
-        z = np.zeros(0, np.int64)
-        return PESparseResult(list(ids), z, z.copy(), z.copy(), z.copy(),
-                              reads.n_reads, reads.short_reads,
-                              reads.used_reads)
-    if cap_c is None:
-        cap_c = max(32, 2 * cap)
-    T = max(reads.fwd_codes.shape[1], reads.rve_codes.shape[1])
-    batch_size = _sparse_batch_clamp(batch_size, T, split_len,
-                                     table.max_dup, logger, mesh.n_data)
-    tab = _rank_table(table, mesh)
-    # only model rank 0 counts link keys
-    tables = (ck.CooTables(N, mesh.device, coo_slots)
-              if mesh.model_rank == 0 else None)
-
-    def one_pass(cap, cap_c):
-        logger.info("sharded sparse PE: %s probe, N=%d, depth=%d, "
-                    "data=%d, model=%d, cap=%d, cap_c=%d, batch=%d",
-                    tab.probe, N, tab.depth, mesh.n_data, mesh.n_model, cap,
-                    cap_c, batch_size)
-        batches = _rank_batches(reads, batch_size, mesh,
-                                force_bytes=tab.probe != "sortfill")
-        shard_ovf = torch.zeros((), dtype=torch.bool, device=mesh.device)
-        core = _sparse_core_sharded(tab, mesh, T, cap, cap_c, shard_ovf)
-        coo = _sparse_run(batches, core, mesh.device, tables)
-        # the world's worst outcome: 2 a cap overflow, 1 a full link table
-        code = ((shard_ovf | (coo is None)).to(torch.int32) * 2
-                + int(coo is _TABLE_FULL))
-        worst = int(_reduce_world(code, dist.ReduceOp.MAX, mesh))
-        return None if worst >= 2 else _TABLE_FULL if worst else coo
-
-    coo = _sparse_retry(one_pass, cap, cap_c, logger)
-    if mesh.backend is not None:
-        coo = merge_coo_ranks(coo, mesh.backend, mesh.device)
-    return PESparseResult(list(ids), *coo, reads.n_reads,
-                          reads.short_reads, reads.used_reads)
+    res = _engine(ids, seqs, reads, kmer_size, batch_size, "sort", "sparse",
+                  table, logger or _LOG, mesh.device, _RankSeams(mesh), cap,
+                  max(32, 2 * cap) if cap_c is None else cap_c, coo_slots)
+    if isinstance(res, PEResult):  # no pairs or no table entries
+        return _empty_result(ids, reads, 0, sparse=True)
+    return res
 
 
 def merge_coo_ranks(coo, backend: str, device):
@@ -391,7 +334,7 @@ def merge_coo_ranks(coo, backend: str, device):
     same on every rank."""
     pk, pc, sk, sc = (all_gather_ragged(a, None, backend, device)
                       for a in coo)
-    return (*_merge_coo(pk, pc), *_merge_coo(sk, sc))
+    return (*ck._merge_coo(pk, pc), *ck._merge_coo(sk, sc))
 
 
 # --------------------------------------------------------------------------
