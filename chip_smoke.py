@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --pinned-drain     # phase 5a alone
     python3 chip_smoke.py --coo-accum        # phase 6a alone
+    python3 chip_smoke.py --card-table       # phase 5c alone
 
 Phases (one line each; any failure raises and the script exits non-zero
 without the final result line):
@@ -42,8 +43,8 @@ without the final result line):
      "searchsorted"), three rounds of the three: dup_stats launched in
      place of stats_accum, the first round's write_pe_files byte-equal
      to the HIV record's aln files, every run's engine wall and the first
-     round's peak memory printed, then the device table's upload timed
-     alone; dup_stats at the HIV shapes (K = 201, D = 1,
+     round's peak memory printed, then the device table (built on the
+     card) timed alone; dup_stats at the HIV shapes (K = 201, D = 1,
      max_dup, 32); the graph passes on
      the card (graph_is_dag_device against the host DFS before and after
      one back edge; edge_flow_device on 20,000 edges against the float64
@@ -52,8 +53,17 @@ without the final result line):
      random nodes: the CUDA engine's node_mat and short_mat page-locked
      and equal to the CPU engine's, a second call's arrays in the blocks
      the first call's left, `pe.d2h_pinned_bytes` equal to
-     `pe.d2h_bytes`; the drain of two int64 [3,056, 3,056] accumulators
+     `pe.d2h_bytes` less the table build's 16-byte readback; the drain
+     of two int64 [3,056, 3,056] accumulators
      timed against the pageable copies it replaced;
+ 5c. the PE k-mer table built on the card (`pe_infer._card_table`, the
+     payloads and record in `_device_table`) on the graphs of an
+     hiv_labmix, a zikv15 and an hcmv3 dataset from `portbench/gen`
+     (generator seeds 0, 1, 1; no reads): bit-equal to the host build
+     (C++ path, host payloads) in every entry array with its padding,
+     max_dup, the entry count, the payloads, the record and the bucket
+     index; each route timed, the card's by CUDA events and by host wall
+     with the readback and the encode, beside the host's wall;
   6. the same HIV dataset through the port CLI with --pe-batch-size
      262144, which the dense/sparse memory rule routes to the sparse PE
      engine: outputs byte-equal to the same JAX record (the two engines
@@ -525,7 +535,7 @@ def kernel_phase(gfa_path: str) -> dict:
     # padded to 32), windows of k+1, N nodes, D duplicate ranks
     seqs, L = read_gfa(gfa_path)
     N = len(seqs)
-    D = min(P.build_kmer_table(seqs, L).max_dup, P._SORTFILL_MAX_DUP)
+    D = min(P._build_kmer_table(seqs, L).max_dup, P._SORTFILL_MAX_DUP)
     B, T = 16384, 256
     K = T - L + 1
     dev = torch.device("cuda")
@@ -708,7 +718,8 @@ def pinned_drain_check() -> dict:
     (`torch.from_numpy(a).is_pinned()`), C-contiguous, writable and equal
     to the CPU engine's; with the first result dropped, a second call's
     arrays must lie in the same two blocks (their `ctypes.data`), and each
-    call's `pe.d2h_pinned_bytes` must equal its `pe.d2h_bytes`. Then, at
+    call's `pe.d2h_pinned_bytes` must equal its `pe.d2h_bytes` less the
+    table build's 16-byte readback. Then, at
     zikv15's N = 3,056, the drain of two zero int64 [N, N] accumulators
     timed against the pageable `.cpu().numpy()` pair it replaced, each
     while holding its three latest results (as the benchmark's loop
@@ -738,8 +749,11 @@ def pinned_drain_check() -> dict:
                 raise AssertionError(f"pinned drain: {name} {a.dtype} "
                                      f"{a.flags}")
             np.testing.assert_array_equal(a, getattr(ref, name))
-        if not got["pe.d2h_pinned_bytes"] == got["pe.d2h_bytes"] \
-                == 2 * len(ids) ** 2 * 8:
+        # the engine's D2H: the drain, page-locked, and the table build's
+        # two integers
+        drained = 2 * len(ids) ** 2 * 8
+        if not (got["pe.d2h_pinned_bytes"] == drained
+                and got["pe.d2h_bytes"] == drained + 16):
             raise AssertionError(f"pinned drain: counters {got}")
         return res, drain_s
 
@@ -781,7 +795,121 @@ def pinned_drain_check() -> dict:
            "pageable_median_ms": round(float(np.median(pageable_ms)), 3)}
     say("phase 5a (dense drain, page-locked): arrays pinned and equal to "
         "the CPU engine's, blocks reused, pe.d2h_pinned_bytes = "
-        f"pe.d2h_bytes; {json.dumps(out)}")
+        f"pe.d2h_bytes - 16 (the table build's readback); "
+        f"{json.dumps(out)}")
+    return out
+
+
+def _bench_graph(config: str, seed: int):
+    """The node sequences that `portbench/gen` makes for a benchmark
+    configuration at generator seed `seed`, in its GFA's order (longest
+    first), and the table's split_len; no reads are drawn."""
+    from portbench.gen import hivsim
+    with open(os.path.join(REPO, "portbench", "configs",
+                           f"{config}.json")) as fh:
+        spec = json.load(fh)["dataset"]
+    params = spec["params"]
+    if spec["generator"] == "make_hiv_dataset":
+        genomes, _ = hivsim.simulate_strains(params["genome_len"], seed=seed)
+    else:
+        genomes, _ = hivsim.simulate_random_phylogeny(
+            params["n_strains"], params["genome_len"], seed=seed,
+            branch_rate=params["branch_rate"])
+    unitigs = hivsim._build_unitigs(genomes, params["km"])[0]
+    return sorted(unitigs, key=lambda u: (-len(u), u)), params["km"]
+
+
+def card_table_check() -> dict:
+    """Phase 5c (`--card-table` runs it alone): the PE k-mer table built on
+    the card (`pe_infer._card_table` and the payloads in
+    `_device_table`) against the host build (the C++ path, then
+    `_build_sortfill_payloads`) on the graphs of an hiv_labmix, a zikv15
+    and an hcmv3 dataset from `portbench/gen`: every entry array with its
+    padding, max_dup, the entry count, the payloads, the classic probe's
+    record and bucket index, bit for bit. Then each route timed, the
+    median of five after one warm-up: the card's (the host encode, then
+    the build and payloads: CUDA events and the host wall, readback
+    included) beside the host's (C++ build, host payloads, and their
+    H2D with the table's upload)."""
+    import numpy as np
+    import torch
+
+    from vstrains_tpu_torch.ops import cuda_kernels as ck
+    from vstrains_tpu_torch.ops import pe_infer as TP
+
+    dev = torch.device("cuda")
+    out = {}
+    for config, seed in (("hiv_labmix", 0), ("zikv15", 1), ("hcmv3", 1)):
+        seqs, L = _bench_graph(config, seed)
+        host = TP._build_kmer_table(seqs, L)
+        table = TP.build_kmer_table(seqs, L)
+        card = TP._card_table(table, dev)
+        for f in ("h1_biased", "h2", "node", "offset"):
+            if not np.array_equal(getattr(card, f).cpu().numpy(),
+                                  getattr(host, f)):
+                raise AssertionError(f"{config}: the card's {f} differs "
+                                     "from the host build's")
+        if (card.max_dup, card.num_entries) != (host.max_dup,
+                                                 host.num_entries):
+            raise AssertionError(f"{config}: card (max_dup, entries) "
+                                 f"{(card.max_dup, card.num_entries)} != "
+                                 f"{(host.max_dup, host.num_entries)}")
+        nb = TP._sortfill_node_bits(len(seqs))
+        tab = TP._device_table(card, "sortfill")
+        want = TP._build_sortfill_payloads(host, nb)
+        if not np.array_equal(tab.pays.cpu().numpy(), want):
+            raise AssertionError(f"{config}: the card's payloads differ")
+        rec = ck.table_record(*(torch.from_numpy(getattr(host, f))
+                                for f in ("h1_biased", "h2", "node")))
+        if not torch.equal(TP._device_table(card, "join").rec.cpu(), rec):
+            raise AssertionError(f"{config}: the card's record differs")
+        starts, shift, depth = TP._card_bucket_index(card)
+        w_starts, w_shift, w_depth = TP._bucket_index(host)
+        if not (np.array_equal(starts.cpu().numpy(), w_starts)
+                and (shift, depth) == (w_shift, w_depth)):
+            raise AssertionError(f"{config}: the card's bucket index "
+                                 "differs")
+
+        times = {"card_ms": [], "card_wall_ms": [], "encode_ms": [],
+                 "host_wall_ms": [], "host_build_ms": []}
+        for i in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t = TP.build_kmer_table(seqs, L)
+            t1 = time.perf_counter()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            TP._device_table(TP._card_table(t, dev), "sortfill")
+            end.record()
+            end.synchronize()
+            t2 = time.perf_counter()
+            h0 = time.perf_counter()
+            ht = TP._build_kmer_table(seqs, L)
+            h1 = time.perf_counter()
+            TP._upload(ht.h1_biased, dev)
+            TP._upload(TP._build_sortfill_payloads(ht, nb), dev)
+            torch.cuda.synchronize()
+            h2 = time.perf_counter()
+            if i:
+                times["encode_ms"].append((t1 - t0) * 1e3)
+                times["card_ms"].append(start.elapsed_time(end))
+                times["card_wall_ms"].append((t2 - t0) * 1e3)
+                times["host_build_ms"].append((h1 - h0) * 1e3)
+                times["host_wall_ms"].append((h2 - h0) * 1e3)
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        out[config] = dict(nodes=len(seqs), entries=host.num_entries,
+                           padded=int(host.h1_biased.size),
+                           max_dup=host.max_dup,
+                           codes_bytes=int(table.codes.nbytes), **med)
+        say(f"card table ({config}, generator seed {seed}): N = "
+            f"{len(seqs)}, {host.num_entries} entries (padded "
+            f"{host.h1_biased.size}), max_dup {host.max_dup}: bit-equal to "
+            f"the host build with payloads, record and bucket index; card "
+            f"route {med['card_wall_ms']:.3f} ms wall (encode "
+            f"{med['encode_ms']:.3f}, CUDA events {med['card_ms']:.3f}) "
+            f"against the host route {med['host_wall_ms']:.3f} ms (C++ "
+            f"build {med['host_build_ms']:.3f})")
     return out
 
 
@@ -928,9 +1056,9 @@ def coo_accum_check() -> dict:
     say(f"hcmv3 cut: N = {N}, {reads.num_pairs} pairs, generated and "
         f"loaded in {time.time() - t0:.1f} s")
     logger = logging.getLogger("chip_smoke.coo_accum")
-    table = TP.build_kmer_table(seqs, k + 1)
+    table = TP._card_table(TP.build_kmer_table(seqs, k + 1), dev)
     tab = TP._device_table(table, TP._route_probe("sort", True, table,
-                                                  logger), dev)
+                                                  logger))
     T = max(reads.fwd_codes.shape[1], reads.rve_codes.shape[1])
     lists = []
     for kind, payload in TP._wire_batches(reads, 16384):
@@ -957,7 +1085,7 @@ def coo_accum_check() -> dict:
     for name, slots in (("first size", None), ("from 4,096 slots", 4096)):
         ck.reset_launches()
         before = tracing.totals()["counters"]
-        res = TP._infer_pe_links_sparse(ids, table, tab, reads, 16384,
+        res = TP._infer_pe_links_sparse(ids, tab, reads, 16384,
                                         logger, coo_slots=slots)
         got = tracing.totals()["counters"]
         grows = got["pe.coo_table_grows"] - before.get("pe.coo_table_grows",
@@ -1143,14 +1271,15 @@ def cell_50k(rec: dict, rng) -> dict:
     t0 = time.time()
     table = P.build_kmer_table(refs, k + 1)
     build_s = time.time() - t0
+    card = P._card_table(table, torch.device("cuda"))
     N = table.num_nodes
     budget_rows = P.dense_budget_rows(N)
     batch = rec["batch_size"]
     if not batch > budget_rows:
         raise AssertionError(f"50k: dense budget {budget_rows} rows would "
                              f"keep batch {batch} dense")
-    say(f"50k cell: table {table.num_entries} entries, max_dup "
-        f"{table.max_dup}, built in {build_s:.3f} s; dense budget "
+    say(f"50k cell: table {card.num_entries} entries, max_dup "
+        f"{card.max_dup}, encoded in {build_s:.3f} s; dense budget "
         f"{budget_rows} rows < batch {batch}: auto routes to sparse")
 
     log, messages = _keep_log("chip_smoke.r50k")
@@ -1198,7 +1327,7 @@ def cell_50k(rec: dict, rng) -> dict:
     if not isinstance(res, P.PESparseResult) or not res.pair_counts.size:
         raise AssertionError("50k timed run: no sparse links")
     say(f"50k timed run: {n_all} pairs in {sec:.4f} s = {n_all / sec:.1f} "
-        f"pairs/s; table build {build_s:.4f} s; {-(-n_all // batch)} "
+        f"pairs/s; table encode {build_s:.4f} s; {-(-n_all // batch)} "
         f"batches of {batch}; peak device memory {peak:.0f} MiB; cap retries "
         f"{len(retries)}; {res.pair_keys.size} PE links, "
         f"{res.short_keys.size} same-end links")
@@ -1283,7 +1412,7 @@ def classic_inputs(table, reads, batch: int, split_len: int):
     codes, lens = (torch.from_numpy(x).cuda()
                    for x in P._stack_ends_np(*payload))
     q1, h2, valid = ck.window_hashes_bytes(codes, lens, split_len)
-    tab = P._device_table(table, "join", torch.device("cuda"))
+    tab = P._device_table(P._card_table(table, torch.device("cuda")), "join")
     return (q1, h2, valid, P._classic_lo(q1, tab)), tab
 
 
@@ -1403,7 +1532,7 @@ def hiv_classic_phase(hiv: dict, hiv_data: str, hiv_out: str) -> tuple:
     call timed. The first round's write_pe_files output must equal the
     HIV record's aln/pe_info and aln/st_info; each run must launch
     dup_stats, window_hashes and pair_counts, and not stats_accum,
-    dup_scan or sort_rows. Then the device table's upload alone, timed,
+    dup_scan or sort_rows. Then the device table's build alone, timed,
     and dup_stats at the HIV shapes. Returns (view, the dup_stats
     checks)."""
     import torch
@@ -1421,8 +1550,9 @@ def hiv_classic_phase(hiv: dict, hiv_data: str, hiv_out: str) -> tuple:
                             ksize + 1, pad_to_multiple=32)
     t0 = time.time()
     table = P.build_kmer_table(seqs, ksize + 1)
+    card = P._card_table(table, torch.device("cuda"))
     say(f"hiv classic: {len(ids)} nodes, {reads.num_pairs} pairs; table "
-        f"{table.num_entries} entries, max_dup {table.max_dup}, built in "
+        f"{card.num_entries} entries, max_dup {card.max_dup}, built in "
         f"{time.time() - t0:.4f} s")
     want = {"pe_info": hiv["outputs"]["aln/pe_info"],
         "st_info": hiv["outputs"]["aln/st_info"]}
@@ -1460,22 +1590,24 @@ def hiv_classic_phase(hiv: dict, hiv_data: str, hiv_out: str) -> tuple:
             f"{reads.num_pairs / min(walls[mode]):.1f} pairs/s; peak device "
             f"memory {peaks[mode]:.0f} MiB; pe_info/st_info byte-equal to "
             "the JAX record (first round)")
-    # what each classic call spends uploading the table and building its
-    # record on the card, apart from the engine's batches
+    # what each classic call spends building the table and its record on
+    # the card (an encoded table: _card_table), apart from the engine's
+    # batches
     dev = torch.device("cuda")
     up = []
     for _ in range(5):
         torch.cuda.synchronize()
         t = time.time()
-        P._device_table(table, "join", dev)
+        P._device_table(P._card_table(table, dev), "join")
         torch.cuda.synchronize()
         up.append(time.time() - t)
-    say(f"hiv classic device table (h1 and the [M, 4] record, "
-        f"{table.h1_biased.size} entries): "
+    say(f"hiv classic device table (built on the card: h1 and the [M, 4] "
+        f"record, "
+        f"{card.h1_biased.numel()} entries): "
         f"{', '.join(f'{x:.4f}' for x in up)} s")
     win, tab = classic_inputs(table, reads, 16384, ksize + 1)
     checks = [dup_compare("dup_stats", f"HIV D={d}", win, tab, d)
-              for d in sorted({1, table.max_dup, 32})]
+              for d in sorted({1, card.max_dup, 32})]
     del win, tab
     torch.cuda.empty_cache()
     return view, checks
@@ -1558,13 +1690,14 @@ def repeat_cell(rec: dict) -> tuple:
     gen_s = time.time() - t0
     t0 = time.time()
     table = P.build_kmer_table(refs, k + 1)
+    card = P._card_table(table, torch.device("cuda"))
     N, batch = table.num_nodes, rec["batch_size"]
     say(f"repeat cell: {N} nodes, {reads.num_pairs} pairs, generated in "
-        f"{gen_s:.1f} s; table {table.num_entries} entries, max_dup "
-        f"{table.max_dup} (> {P._SORTFILL_MAX_DUP}: the classic join), built "
+        f"{gen_s:.1f} s; table {card.num_entries} entries, max_dup "
+        f"{card.max_dup} (> {P._SORTFILL_MAX_DUP}: the classic join), built "
         f"in {time.time() - t0:.4f} s; dense budget "
         f"{P.dense_budget_rows(N)} rows >= batch {batch}")
-    if table.max_dup <= P._SORTFILL_MAX_DUP or batch > P.dense_budget_rows(N):
+    if card.max_dup <= P._SORTFILL_MAX_DUP or batch > P.dense_budget_rows(N):
         raise AssertionError("repeat: the cell should be dense and past the "
                              "packed probe's 16 ranks")
     ids = [str(i) for i in range(N)]
@@ -1605,7 +1738,7 @@ def repeat_cell(rec: dict) -> tuple:
             f"{reads.num_pairs / sec:.1f} pairs/s; peak device memory "
             f"{peak:.0f} MiB; files byte-equal to the JAX record{extra}")
         launches[engine] = got
-    D = table.max_dup
+    D = card.max_dup
     win, tab = classic_inputs(table, reads, batch, k + 1)
     stats = dup_compare("dup_stats", "repeat cell dense", win, tab, D)
     # the slot plane dup_stats replaces, through the kernel that read it
@@ -1653,10 +1786,11 @@ def repeat64_cell(rec: dict, rng) -> tuple:
     n_all, n_chk = len(fl), rec["checked_pairs"]
     gen_s = time.time() - t0
     table = P.build_kmer_table(refs, k + 1)
+    card = P._card_table(table, torch.device("cuda"))
     N, batch = table.num_nodes, rec["batch_size"]
     say(f"repeat64 cell: {N} nodes, {n_all} pairs generated in {gen_s:.1f} "
-        f"s; table {table.num_entries} entries, max_dup {table.max_dup}")
-    if table.max_dup != rec["max_dup"] or batch > P.dense_budget_rows(N):
+        f"s; table {card.num_entries} entries, max_dup {card.max_dup}")
+    if card.max_dup != rec["max_dup"] or batch > P.dense_budget_rows(N):
         raise AssertionError("repeat64: max_dup differs from the record's, "
                              "or the cell is past the dense budget")
     ids = [str(i) for i in range(N)]
@@ -1714,7 +1848,7 @@ def repeat64_cell(rec: dict, rng) -> tuple:
     reads_all = ReadPairBatch(fc, fl, rc, rl, 0, 0, n_all)
     checks = sparse_path_kernels("repeat64", reads_all, k + 1, shape, rng,
                                  force_bytes=True)
-    D = table.max_dup
+    D = card.max_dup
     for kernel, b, label in (("dup_stats", batch, "repeat64 dense"),
                              ("dup_scan", shape["batch"],
                               "repeat64 sparse")):
@@ -1757,6 +1891,7 @@ def cell_300k(rec: dict, rng) -> list:
     t0 = time.time()
     table = P.build_kmer_table(refs, k + 1)
     build_s = time.time() - t0
+    card = P._card_table(table, torch.device("cuda"))
     N = table.num_nodes
     batch = rec["batch_size"]
     if P._sortfill_node_bits(N) is not None or not \
@@ -1765,8 +1900,8 @@ def cell_300k(rec: dict, rng) -> list:
                              "dense budget")
     say(f"300k cell: {N} nodes, {n_all} pairs; host seconds: generate "
         f"{gen_s:.2f}, input digests {digest_s:.2f}, pack {pack_s:.2f}, "
-        f"table {build_s:.2f} ({table.num_entries} entries padded to "
-        f"{table.h1_biased.size}, max_dup {table.max_dup})")
+        f"table encode {build_s:.2f} ({card.num_entries} entries padded to "
+        f"{card.h1_biased.numel()}, max_dup {card.max_dup})")
     log, messages = _keep_log("chip_smoke.r300k")
 
     def engine(n):
@@ -1813,7 +1948,7 @@ def cell_300k(rec: dict, rng) -> list:
     if not res.pair_counts.size:
         raise AssertionError("300k timed run: no sparse links")
     say(f"300k timed run: {n_all} pairs in {sec:.4f} s = {n_all / sec:.1f} "
-        f"pairs/s; table build {build_s:.4f} s; {-(-n_all // batch)} "
+        f"pairs/s; table encode {build_s:.4f} s; {-(-n_all // batch)} "
         f"batches of {batch}; peak device memory {peak:.0f} MiB; cap retries "
         f"{len(retries)}; {res.pair_keys.size} PE links, "
         f"{res.short_keys.size} same-end links; launches of the checked "
@@ -2087,7 +2222,7 @@ def rank_job(job: dict, rank: int, world: int):
         np.savez(f"{job['out']}.r{rank}.npz", h1=h1, h2=h2, valid=valid)
         return wall, {"model_rank": 0}
     if kind == "sp_table":
-        from vstrains_tpu_torch.ops.pe_infer import build_kmer_table
+        from vstrains_tpu_torch.ops.pe_infer import _build_kmer_table
         seqs = sp_table_graph()
         walls = {"sp": [], "host": []}
         for _ in range(2):  # alternated: SP, host C++, SP, host C++
@@ -2097,7 +2232,7 @@ def rank_job(job: dict, rank: int, world: int):
             torch.cuda.synchronize()
             walls["sp"].append(time.time() - t)
             t = time.time()
-            host = build_kmer_table(seqs, SP_SPLIT_LEN)
+            host = _build_kmer_table(seqs, SP_SPLIT_LEN)
             walls["host"].append(time.time() - t)
         for f in ("h1_biased", "h2", "node", "offset"):
             if not np.array_equal(getattr(sp, f), getattr(host, f)):
@@ -2740,6 +2875,8 @@ def main() -> int:
     # 5b. the same graph and reads in every probe mode; the graph passes
     view, hiv_dup = hiv_classic_phase(hiv, hiv_data, hiv_out)
     graph_phase(view)
+    # 5c. the k-mer table built on the card
+    card_table_check()
 
     # 6. HIV through the sparse engine
     sparse_launches, sparse_checks = hiv_sparse_phase(
@@ -2824,6 +2961,11 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--pinned-drain"]:
         pinned_drain_check()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--card-table"]:
+        from vstrains_tpu_torch.ops import _build
+        _build.build()
+        say(json.dumps(card_table_check()))
         sys.exit(0)
     if sys.argv[1:2] == ["--coo-accum"]:
         from vstrains_tpu_torch.ops import _build

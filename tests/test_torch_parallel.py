@@ -232,8 +232,8 @@ def test_sharded_equals_jax_sharded(worlds, eight_devices, case, shape):
 def test_sharded_cases_cover_both_probes():
     """The inputs reach both probe families: the packed probe (max_dup
     within 16, duplicates present) and the classic join (max_dup > 16)."""
-    dup = TP.build_kmer_table(_inputs("dup")[0], 12)
-    rep = TP.build_kmer_table(_inputs("repeat")[0], 12)
+    dup, rep = (TP._card_table(TP.build_kmer_table(_inputs(g)[0], 12), "cpu")
+                for g in ("dup", "repeat"))
     assert 1 < dup.max_dup <= TP._SORTFILL_MAX_DUP < rep.max_dup
     assert TP._route_probe("sort", False, dup, TP._LOG) == "sortfill"
     assert TP._route_probe("sort", False, rep, TP._LOG) == "join"
@@ -267,7 +267,9 @@ def test_sharded_mixed_lengths_equal_single_engine(worlds, shape):
 def test_sharded_small_input_past_the_cutover_equals_single_engine():
     """A batch past the dense/sparse cutover on an input of a few hundred
     pairs: infer_pe_links clamps the batch to the input and runs dense,
-    and the mesh at 1 x 1 returns the same dense result."""
+    and the mesh at 1 x 1 returns the same dense result, from the table
+    it builds on its device."""
+    from vstrains_tpu_torch.utils import tracing
     refs, fwd, rve, k = _inputs("plain")
     reads = _port_batch(_make_batch(fwd, rve, k + 1))
     ids = [str(i) for i in range(len(refs))]
@@ -275,9 +277,11 @@ def test_sharded_small_input_past_the_cutover_equals_single_engine():
     assert batch > TP.dense_budget_rows(len(refs))
     want = TP.infer_pe_links(ids, refs, reads, k, batch_size=batch,
                              device="cpu")
+    before = tracing.totals()["counters"]["pe.table_card_builds"]
     got = TM.infer_pe_links_sharded(ids, refs, reads, k,
                                     TM.make_mesh(device="cpu"),
                                     batch_size=batch)
+    assert tracing.totals()["counters"]["pe.table_card_builds"] == before + 1
     assert isinstance(want, TP.PEResult) and isinstance(got, TP.PEResult)
     assert want.node_mat.sum() > 0
     for f in _FIELDS["dense"]:
@@ -286,10 +290,11 @@ def test_sharded_small_input_past_the_cutover_equals_single_engine():
 
 @pytest.mark.parametrize("n_shards", [1, 2, 3, 4])
 def test_shard_table_and_payloads_equal_jax(n_shards):
-    """Host table sharding: the shard arrays and the per-shard sortfill
-    payloads equal the JAX package's, sentinels included."""
+    """Sharding of the table built on the device: the shard arrays and the
+    per-shard sortfill payloads equal the JAX package's, sentinels
+    included."""
     refs = _inputs("dup")[0]
-    t = TP.build_kmer_table(refs, 12)
+    t = TP._card_table(TP.build_kmer_table(refs, 12), "cpu")
     j = JP.build_kmer_table(refs, 12)
     a, b = TM.shard_table(t, n_shards), JM.shard_table(j, n_shards)
     for f in ("h1_biased", "h2", "node", "offset"):
@@ -371,7 +376,7 @@ def test_build_table_auto_sp_equals_host(worlds):
     bp and more through the SP step: the table equals the host build (the
     port's and the JAX package's)."""
     _, _, seqs, L = _sp_inputs()
-    host = TP.build_kmer_table(seqs, L)
+    host = TP._build_kmer_table(seqs, L)
     jhost = JP.build_kmer_table(seqs, L)
     for got in worlds[2].ranks("sp"):
         for f in ("h1", "h2", "node", "offset"):
@@ -471,12 +476,12 @@ def test_make_mesh_needs_a_world_past_one_rank():
 
 @pytest.mark.parametrize("native", ["1", "0"])
 def test_build_kmer_table_long_hash_equals_host(monkeypatch, native):
-    """build_kmer_table with long nodes hashed by a callable (the SP
-    step's contract) and the others by the host build, C++ or numpy:
-    equal to the host table, and the callable sees each long node's two
-    strands only."""
+    """The host build with long nodes hashed by a callable (the SP step's
+    contract) and the others by the host build, C++ or numpy: equal to
+    the host table, and the callable sees each long node's two strands
+    only."""
     _, _, seqs, L = _sp_inputs()
-    want = TP.build_kmer_table(seqs, L)
+    want = TP._build_kmer_table(seqs, L)
     monkeypatch.setenv("VSTRAINS_NATIVE_TABLE", native)
     seen = []
 
@@ -484,7 +489,7 @@ def test_build_kmer_table_long_hash_equals_host(monkeypatch, native):
         seen.append(codes.shape[0])
         return window_hashes_np(codes, L)
 
-    got = TP.build_kmer_table(seqs, L, long_hash=(8192, hash_fn))
+    got = TP._build_kmer_table(seqs, L, long_hash=(8192, hash_fn))
     assert sorted(seen) == [9000, 9000, 12000, 12000]
     for f in ("h1_biased", "h2", "node", "offset"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))

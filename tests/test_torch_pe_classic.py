@@ -67,7 +67,7 @@ def test_probe_modes_match_jax(probe_mode, stats_mode, tmp_path):
     written files are the same bytes."""
     rng, refs = _dup_graph(53, 5, extra=6, tail=100)
     k = 11
-    assert 1 < TP.build_kmer_table(refs, k + 1).max_dup <= 16
+    assert 1 < TP._build_kmer_table(refs, k + 1).max_dup <= 16
     fwd, rve = _sample_reads(rng, refs, 150, 40, k)
     batch = _make_batch(fwd, rve, k + 1)
     ids = [f"n{i}" for i in range(len(refs))]
@@ -90,7 +90,7 @@ def test_repeat_graph_takes_classic_join(stats_mode):
     join in both engines, equal to the JAX engine and the oracle."""
     _, refs = _dup_graph(41, 24, motif_len=30, tail=50)
     k = 11
-    assert TP.build_kmer_table(refs, k + 1).max_dup > TP._SORTFILL_MAX_DUP
+    assert TP._build_kmer_table(refs, k + 1).max_dup > TP._SORTFILL_MAX_DUP
     rng = np.random.RandomState(0)
     fwd, rve = _sample_reads(rng, refs, 80, 30, k)
     batch = _make_batch(fwd, rve, k + 1)
@@ -110,7 +110,7 @@ def test_repeat64_graph_matches_jax(stats_mode):
     engines on the same inputs."""
     refs, fwd, rve, k = repeat_workload(n_groups=4, group_size=64,
                                         n_pairs=512)
-    assert TP.build_kmer_table(refs, k + 1).max_dup == 64
+    assert TP._build_kmer_table(refs, k + 1).max_dup == 64
     batch = _make_batch(fwd, rve, k + 1)
     ids = [str(i) for i in range(len(refs))]
     got, want = _engines(ids, refs, batch, k, stats_mode, batch_size=256)
@@ -150,7 +150,7 @@ def test_large_graph_route(stats_mode, monkeypatch):
     monkeypatch.setattr(JP, "_SORTFILL_MAX_NODE_BITS", 8)
     rng, refs = _dup_graph(61, 4, extra=8, tail=90)
     k = 11
-    table = TP.build_kmer_table(refs, k + 1)
+    table = TP._card_table(TP.build_kmer_table(refs, k + 1), "cpu")
     assert TP._sortfill_node_bits(len(refs)) is None
     assert TP._route_probe("sort", stats_mode == "sparse", table,
                            TP._LOG) == "join"
@@ -197,7 +197,7 @@ def test_routing_matches_jax_engine(probe_mode, monkeypatch):
     for seed, n_motif, kw in ((53, 5, dict(extra=2)),
                               (41, 24, dict(motif_len=30, tail=50))):
         rng, refs = _dup_graph(seed, n_motif, **kw)
-        table = TP.build_kmer_table(refs, k + 1)
+        table = TP._card_table(TP.build_kmer_table(refs, k + 1), "cpu")
         fwd, rve = _sample_reads(rng, refs, 12, 30, k)
         batch = _make_batch(fwd, rve, k + 1)
         ids = [str(i) for i in range(len(refs))]
@@ -227,7 +227,7 @@ def test_bucket_index_matches_jax(graph, pad, native, monkeypatch):
     monkeypatch.setenv("VSTRAINS_NATIVE_TABLE", native)
     _, refs = (_dup_graph(5, 6, extra=4) if graph == "short_runs" else
                _dup_graph(41, 24, motif_len=30, tail=50))
-    a = TP.build_kmer_table(refs, 12, pad_to_bucket=pad)
+    a = TP._build_kmer_table(refs, 12, pad_to_bucket=pad)
     b = JP.build_kmer_table(refs, 12, pad_to_bucket=pad, bucket_index=True)
     for f in ("h1_biased", "h2", "node", "offset", "seq_lens"):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f))

@@ -109,14 +109,14 @@ def test_hcmv_sparse_retries_counts_each_cap_overflow(hcmv_cut, caplog):
     (caps x4) adds one, and the retried pass still equals the
     reference."""
     ids, seqs, reads, k, ref = hcmv_cut
-    table = TP.build_kmer_table(seqs, k + 1)
+    table = TP._card_table(TP.build_kmer_table(seqs, k + 1),
+                           torch.device("cpu"))
     logger = logging.getLogger(TP.__name__)
     tab = TP._device_table(table, TP._route_probe("sort", True, table,
-                                                  logger),
-                           torch.device("cpu"))
+                                                  logger))
     before = tracing.totals()["counters"].get("pe.sparse_retries", 0)
     with caplog.at_level(logging.INFO, logger=TP.__name__):
-        res = TP._infer_pe_links_sparse(ids, table, tab, reads, BATCH,
+        res = TP._infer_pe_links_sparse(ids, tab, reads, BATCH,
                                         logger, cap=1, cap_c=2)
     retries = tracing.totals()["counters"]["pe.sparse_retries"] - before
     said = sum("overflowed" in r.getMessage() for r in caplog.records)
@@ -167,17 +167,17 @@ def _sparse_engine(cut, said, batch, **kw):
     result and what `pe.coo_table_grows` and `pe.sparse_retries`
     gained."""
     ids, seqs, reads, k, _ = cut
-    table = TP.build_kmer_table(seqs, k + 1)
+    table = TP._card_table(TP.build_kmer_table(seqs, k + 1),
+                           torch.device("cpu"))
     logger = logging.getLogger(f"{TP.__name__}.test_hcmv")
     logger.setLevel(logging.INFO)
     logger.addHandler(said)
     tab = TP._device_table(table, TP._route_probe("sort", True, table,
-                                                  logger),
-                           torch.device("cpu"))
+                                                  logger))
     names = ("pe.coo_table_grows", "pe.sparse_retries")
     before = tracing.totals()["counters"]
     try:
-        res = TP._infer_pe_links_sparse(ids, table, tab, reads, batch,
+        res = TP._infer_pe_links_sparse(ids, tab, reads, batch,
                                         logger, **kw)
     finally:
         logger.removeHandler(said)

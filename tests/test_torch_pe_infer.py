@@ -95,8 +95,8 @@ def test_wire_and_byte_feeds_agree():
     refs = _random_refs(rng, 4, [90, 100, 110, 120])
     fwd, rve = _sample_reads(rng, refs, 120, 32, k)
     batch = _port_batch(_make_batch(fwd, rve, k + 1))
-    tab = TP._device_table(TP.build_kmer_table(refs, k + 1), "sortfill",
-                           "cpu")
+    tab = TP._device_table(
+        TP._card_table(TP.build_kmer_table(refs, k + 1), "cpu"), "sortfill")
     T = max(batch.fwd_codes.shape[1], batch.rve_codes.shape[1])
     accs = []
     for force_bytes in (False, True):
@@ -196,7 +196,8 @@ def test_mid_n_wide_node_ids_match_jax_and_oracle():
     refs = ([motif + _random_refs(rng, 1, [40])[0] for _ in range(9)]
             + _random_refs(rng, 531, [60] * 531))
     table = TP.build_kmer_table(refs, k + 1)
-    assert 6 < table.max_dup <= 16 and TP._sortfill_node_bits(540) == 10
+    assert 6 < TP._card_table(table, "cpu").max_dup <= 16
+    assert TP._sortfill_node_bits(540) == 10
     fwd, rve = _sample_reads(rng, refs, 80, 30, k)
     batch = _make_batch(fwd, rve, k + 1)
     ids = [str(i) for i in range(len(refs))]
@@ -212,7 +213,7 @@ def test_mid_n_wide_node_ids_match_jax_and_oracle():
 def test_kmer_table_and_payloads_match_jax(native, monkeypatch):
     monkeypatch.setenv("VSTRAINS_NATIVE_TABLE", native)
     _, refs = _dup_graph(5, 4, extra=3)
-    a = TP.build_kmer_table(refs, 12)
+    a = TP._build_kmer_table(refs, 12)
     b = JP.build_kmer_table(refs, 12)
     for f in ("h1_biased", "h2", "node", "offset", "seq_lens"):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
@@ -291,8 +292,9 @@ def test_drain_dense_on_cpu_returns_the_accumulators():
 
 
 def test_dense_drain_counts_no_pinned_bytes_on_cpu():
-    """infer_pe_links(device="cpu") counts its 2·N²·8 result bytes as the
-    engine's D2H and none of them as page-locked."""
+    """infer_pe_links(device="cpu") counts its 2·N²·8 result bytes and
+    the device table build's two integers (16 bytes) as the engine's D2H,
+    and none of them as page-locked."""
     from vstrains_tpu_torch.utils import tracing
 
     rng = np.random.RandomState(7)
@@ -306,8 +308,8 @@ def test_dense_drain_counts_no_pinned_bytes_on_cpu():
     got = {key: v - before["counters"].get(key, 0)
            for key, v in tracing.totals()["counters"].items()}
     N = len(refs)
-    assert got["pe.d2h_bytes"] == 2 * N * N * 8
+    assert got["pe.d2h_bytes"] == 2 * N * N * 8 + 16
     assert got.get("pe.d2h_pinned_bytes", 0) == 0
     assert "pe.d2h_pinned_bytes" not in tracing.since(before)
-    assert f"pe.d2h_bytes {2 * N * N * 8}" in tracing.since(before)
+    assert f"pe.d2h_bytes {2 * N * N * 8 + 16}" in tracing.since(before)
     assert res.node_mat.flags.writeable and res.short_mat.flags.writeable

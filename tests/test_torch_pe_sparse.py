@@ -156,7 +156,7 @@ def test_sparse_engine_matches_jax_and_oracle(stride, monkeypatch):
     fwd, rve = _sample_reads(rng, refs, 150, 40, k)
     batch = _make_batch(fwd, rve, k + 1)
     ids = [str(i) for i in range(len(refs))]
-    assert TP.build_kmer_table(refs, k + 1).max_dup > 1
+    assert TP._build_kmer_table(refs, k + 1).max_dup > 1
     res = _sparse(TP, ids, refs, batch, k, batch_size=32)
     _assert_same_coo(res, _sparse(JP, ids, refs, batch, k, batch_size=32))
     node_o, short_o, *_ = oracle_pe_matrices(refs, fwd, rve, k)
@@ -199,7 +199,7 @@ def test_cap_overflow_retry_matches_jax(n_nodes, caplog):
     fwd = [read] * 8 + [seq[2:40]] * 4
     rve = [read] * 8 + [seq[:30]] * 4
     batch = _make_batch(fwd, rve, k + 1)
-    assert TP.build_kmer_table(refs, k + 1).max_dup <= 16
+    assert TP._build_kmer_table(refs, k + 1).max_dup <= 16
     ids = [str(i) for i in range(n_nodes)]
     with caplog.at_level(logging.INFO):
         res = _sparse(TP, ids, refs, batch, k, batch_size=8)

@@ -122,12 +122,16 @@ def test_dense_counters():
                             device="cpu", stats_mode="dense", table=table)
     got = {key: v - before.get(key, 0)
            for key, v in tracing.totals()["counters"].items()}
-    assert got["pe.d2h_bytes"] == 2 * N * N * 8
+    # the result, and the device table build's entry count and max_dup
+    assert got["pe.d2h_bytes"] == 2 * N * N * 8 + 16
     assert res.node_mat.nbytes + res.short_mat.nbytes == 2 * N * N * 8
-    pays = TP._build_sortfill_payloads(table, TP._sortfill_node_bits(N))
     batches = list(TP._wire_batches(reads, 32))
     assert all(kind == "wire" for kind, _ in batches)
-    want = (table.h1_biased.nbytes + table.seq_lens.nbytes + pays.nbytes
+    # the table goes over as node starts and lengths and its codes, padded
+    # to whole hash rows, and is built there
+    S, L, K = table.codes.size, table.split_len, TP._CARD_ROW_WINDOWS
+    want = (table.starts.nbytes + table.seq_lens.nbytes
+            + -(-(S - L + 1) // K) * K + L - 1
             + sum(p.nbytes for _, p in batches))
     assert got["pe.h2d_bytes"] == want
     assert got["pe.batches"] == len(batches) == -(-reads.num_pairs // 32)
@@ -143,10 +147,10 @@ def test_sparse_counters():
     n = -(-reads.num_pairs // 32)
     assert got["pe.batches"] == n
     # each batch's flags (the link tables' int64 counters), then the
-    # pass's COO arrays
+    # pass's COO arrays, and the device table build's two integers
     coo = (res.pair_keys, res.pair_counts, res.short_keys, res.short_counts)
     assert got["pe.d2h_bytes"] == (n * ck.COO_STATS * 8
-                                   + sum(a.nbytes for a in coo))
+                                   + sum(a.nbytes for a in coo) + 16)
     assert got["pe.coo_unique_keys"] == res.pair_keys.size \
         + res.short_keys.size > 0
 
@@ -209,6 +213,8 @@ def test_pipeline_logs_engine_line_and_span_line(tmp_path):
         assert f"{name} " in spans, name
     for name in ("pe.batches", "pe.h2d_bytes", "pe.d2h_bytes"):
         assert f"{name} " in spans, name
+    # the engine built the table handed to it on its device, once
+    assert "pe.table_card_builds 1" in spans
 
 
 def test_counts_from_many_threads_are_not_lost():

@@ -188,7 +188,7 @@ if hasattr(ck, "dup_scan"):
     refs, fwd, rve, k = repeat_workload(n_pairs=16384)
     fc, fl = _pack([x.encode() for x in fwd])
     rc, rl = _pack([x.encode() for x in rve])
-    table = P.build_kmer_table(refs, k + 1)
+    table = P._build_kmer_table(refs, k + 1, True, None)
     D, N = table.max_dup, table.num_nodes
     arrays, rec = table_of(*(torch.from_numpy(a).to(dev) for a in
                              (table.h1_biased, table.h2, table.node)))

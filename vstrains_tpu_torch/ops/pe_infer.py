@@ -1,10 +1,16 @@
 """Paired-end link inference, dense and sparse engines — the PyTorch port
 of `vstrains_tpu/ops/pe_infer.py`.
 
-Host (numpy, as in the JAX package): the k-mer table over node sequences
-(both strands, dual 32-bit window hashes, hash-sorted), the packed
-sortfill payloads, the compact wire format, length buckets, the output
-files and the PE-info stores.
+Host (numpy, as in the JAX package): the node sequences encoded for the
+k-mer table, the compact wire format, length buckets, the output files
+and the PE-info stores; the host build of the table (both strands, dual
+32-bit window hashes, hash-sorted) and its packed sortfill payloads, the
+device build's references and the sequence-parallel route's build.
+
+Device (torch), once a call: the k-mer table built from the encoded
+sequences (`_card_table`: both strands hashed by the CUDA kernel
+`window_hashes`, one stable sort), bit for bit the host build's; a mesh
+rank's shard of it; the payloads or the classic probe's record.
 
 Device (torch), per batch of B read pairs stacked into one (2B, T)
 end-batch, forward reads first:
@@ -78,6 +84,9 @@ _LOG = logging.getLogger(__name__)
 
 _INF = np.int32(2**31 - 1)
 _BIAS = np.uint32(0x80000000)
+# encode_seq's byte -> code map as a bytes.translate table (one pass in C,
+# ~2x numpy's table lookup over a graph's sequences)
+_CODE_OF_BYTE = encode_seq(bytes(range(256))).tobytes()
 
 
 # --------------------------------------------------------------------------
@@ -104,6 +113,19 @@ class KmerTable:
                             # with never-matching sentinels)
 
 
+@dataclass
+class EncodedTable:
+    """The node sequences a KmerTable is built from, encoded once on the
+    host: what the engine builds the table from on its device
+    (_card_table)."""
+    codes: np.ndarray       # uint8 [S]: the nodes joined by one bad code
+                            # each, so a window over a node's end is invalid
+    starts: np.ndarray      # int32 [N]: each node's first code
+    seq_lens: np.ndarray    # int32 [N] node sequence lengths
+    num_nodes: int
+    split_len: int
+
+
 def _bucket_size(n: int) -> int:
     """Round up to the next power of two (>= 1024): table shapes stay in
     a few buckets across datasets."""
@@ -118,7 +140,7 @@ _PARALLEL_SORT_MIN = 1 << 20  # entries; below this the serial sort wins
 
 def _finish_kmer_table(h1, h2, node, offset, max_dup, num_nodes,
                        split_len, seq_lens, pad_to_bucket):
-    """Common tail of build_kmer_table: bias/bitcast the sorted entry
+    """Common tail of _build_kmer_table: bias/bitcast the sorted entry
     arrays and pad to the shape bucket."""
     h1b = (h1 ^ _BIAS).view(np.int32)
     h2b = h2.view(np.int32)
@@ -156,11 +178,30 @@ def _bucket_index(table: KmerTable):
     return starts.astype(np.int32), shift, max(int(counts.max()), 1)
 
 
-def build_kmer_table(seqs: Sequence[str], split_len: int,
-                     pad_to_bucket: bool = True,
-                     long_hash: Optional[tuple] = None) -> KmerTable:
-    """Build the sorted dual-hash table of all valid (k+1)-mers (both
-    strands) of every node sequence.
+def build_kmer_table(seqs: Sequence[str], split_len: int) -> EncodedTable:
+    """The node sequences encoded for the engine's table of all valid
+    (k+1)-mers (both strands) of every node sequence, which it builds on
+    its device (_card_table). Runs in the span `pe.table_build`."""
+    with span("pe.table_build"):
+        seq_lens = np.array([len(s) for s in seqs], dtype=np.int32)
+        try:
+            joined = "N".join(seqs)
+        except TypeError:  # some sequences are bytes
+            joined = "N".join(s if isinstance(s, str) else s.decode("ascii")
+                              for s in seqs)
+        codes = np.frombuffer(joined.encode("ascii").translate(_CODE_OF_BYTE),
+                              dtype=np.uint8)
+        starts = np.zeros(len(seqs), dtype=np.int32)
+        np.cumsum(seq_lens[:-1] + 1, out=starts[1:])
+        return EncodedTable(codes, starts, seq_lens, len(seqs), split_len)
+
+
+def _build_kmer_table(seqs: Sequence[str], split_len: int,
+                      pad_to_bucket: bool = True,
+                      long_hash: Optional[tuple] = None) -> KmerTable:
+    """The host build of the sorted dual-hash table of all valid
+    (k+1)-mers (both strands) of every node sequence: what the tests hold
+    the engine's device build to, and the sequence-parallel route's build.
 
     With pad_to_bucket, entry arrays pad to a power-of-two bucket with
     never-matching sentinels (h1 = INT32_MAX biased, h2 = -1).
@@ -170,12 +211,7 @@ def build_kmer_table(seqs: Sequence[str], split_len: int,
     windows (uint32, uint32, bool: core/seq.window_hashes_np's contract;
     parallel/mesh.build_table_auto passes the sequence-parallel step),
     the others by the host build; the table is the host build's, bit for
-    bit. Runs in the span `pe.table_build`."""
-    with span("pe.table_build"):
-        return _build_kmer_table(seqs, split_len, pad_to_bucket, long_hash)
-
-
-def _build_kmer_table(seqs, split_len, pad_to_bucket, long_hash):
+    bit."""
     h1s: List[np.ndarray] = []
     h2s: List[np.ndarray] = []
     nodes: List[np.ndarray] = []
@@ -543,24 +579,176 @@ def _upload(arr: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(arr).to(dev)
 
 
-def _device_table(table: KmerTable, probe: str, dev) -> _DeviceTable:
-    """Upload what `probe` reads of a host table (the span
-    `pe.table_upload`: the host payloads or record, and the H2D)."""
+@dataclass
+class _CardTable:
+    """A table's entries on the run's device: a KmerTable's padded entry
+    arrays as int32 tensors, under its names (the engine's device build,
+    _card_table, or a host table's copy, _upload_table)."""
+    h1_biased: torch.Tensor
+    h2: torch.Tensor
+    node: torch.Tensor
+    offset: torch.Tensor
+    max_dup: int
+    num_nodes: int
+    split_len: int
+    num_entries: int
+    seq_lens: torch.Tensor  # int32 [N]
+
+
+_CARD_ROW_WINDOWS = 512  # windows a row of the device build's hash rows
+_I64_MAX = 2**63 - 1
+_TAG = -2**31            # a payload's bit 31, as int32
+
+
+def _card_table(enc: EncodedTable, dev) -> _CardTable:
+    """The table of the encoded sequences built on `dev`, bit for bit the
+    host build's (_build_kmer_table: entries, tie order, padding,
+    max_dup), in the span `pe.table_upload` (counter
+    `pe.table_card_builds`):
+
+      * one H2D: node starts and lengths and the codes, padded with bad
+        codes to whole rows of _CARD_ROW_WINDOWS windows;
+      * the reverse complement of the padded codes made on the device,
+        so that its window R*K - 1 - q is the other strand of forward
+        window q; both strands cut into rows that overlap by split_len - 1
+        and hashed by cuda_kernels.window_hashes_bytes, the batches'
+        kernel (its plain version on the CPU);
+      * window q's two entries side by side, the valid ones moved to the
+        front in that (node, offset) order, then one stable sort of the
+        packed int64 key (h1_biased << 32 | uint32 h2): entries with one
+        key stay in (node, offset) order, the host build's tie order (a
+        forward and a reverse entry at one (node, offset) with one key
+        are the same four values);
+      * max_dup, the longest run of equal h1 among the real entries, and
+        their count read back in one D2H of two integers;
+      * padding to _bucket_size with the host build's sentinels."""
     with span("pe.table_upload"):
-        tab = _DeviceTable(probe, _upload(table.h1_biased, dev),
-                           _upload(table.seq_lens, dev),
-                           table.split_len, table.num_nodes, table.max_dup)
+        count("pe.table_card_builds")
+        N, L, S = enc.num_nodes, enc.split_len, enc.codes.size
+        K = _CARD_ROW_WINDOWS
+        R = -(-(S - L + 1) // K)
+        if R <= 0:
+            return _empty_card(enc, _upload(enc.seq_lens, dev))
+        host = np.empty(8 * N + R * K + L - 1, dtype=np.uint8)
+        ints = host[:8 * N].view(np.int32)
+        ints[:N], ints[N:] = enc.starts, enc.seq_lens
+        host[8 * N:8 * N + S] = enc.codes
+        host[8 * N + S:] = 255
+        buf = _upload(host, dev)
+        ints = buf[:8 * N].view(torch.int32)
+        starts, seq_lens, fwd = ints[:N], ints[N:], buf[8 * N:]
+        # x ^ 3 complements codes 0-3 and keeps the bad codes (>= 4) bad
+        rows = torch.stack([fwd, fwd.flip(0) ^ 3]).unfold(
+            1, K + L - 1, K).reshape(2 * R, K + L - 1)
+        q1, h2, valid = ck.window_hashes_bytes(
+            rows, torch.full((2 * R,), K + L - 1, dtype=torch.int32,
+                             device=dev), L)
+        # the int32 pair (h2, q1) read as one int64: q1 << 32 | uint32 h2
+        key = torch.stack([h2, q1], dim=-1).view(torch.int64).reshape(2, -1)
+        key = torch.stack([key[0], key[1].flip(0)], dim=1).reshape(-1)
+        ok = valid.reshape(2, -1)
+        ok = torch.stack([ok[0], ok[1].flip(0)], dim=1).reshape(-1)
+        n = key.shape[0]
+        before = torch.cumsum(ok, 0)
+        m_dev = before[-1]
+        # the valid entries to the front, the others to a dropped slot
+        sort_in = torch.full((n + 1,), _I64_MAX, dtype=torch.int64,
+                             device=dev)
+        sort_in.index_copy_(0, torch.where(ok, before - 1, n), key)
+        key, order = torch.sort(sort_in[:n], stable=True)
+        # each real entry's place in its run of equal h1
+        h1 = key >> 32
+        pos = torch.arange(n, device=dev)
+        gap = torch.where(pos < m_dev, pos - torch.searchsorted(h1, h1), -1)
+        M, max_gap = _read_back(torch.stack([m_dev, gap.max()]))
+        if M == 0:
+            return _empty_card(enc, seq_lens)
+        out = torch.empty((4, _bucket_size(M)), dtype=torch.int32,
+                          device=dev)
+        h2_h1, node, offset = out[:2], out[2], out[3]
+        h2_h1[:, :M].T.copy_(key[:M].view(torch.int32).view(M, 2))
+        h2_h1[0, M:] = -1
+        h2_h1[1, M:] = int(_INF)
+        out[2:, M:] = 0
+        # the i-th valid entry's window: the first place where before > i
+        win = torch.searchsorted(before, order[:M], right=True,
+                                 out_int32=True).bitwise_right_shift_(1)
+        torch.searchsorted(starts[1:], win, right=True, out_int32=True,
+                           out=node[:M])
+        torch.sub(win, starts[node[:M]], out=offset[:M])
+        return _CardTable(out[1], out[0], node, offset, max_gap + 1, N, L,
+                          M, seq_lens)
+
+
+def _upload_table(table: KmerTable, dev) -> _CardTable:
+    """A host-built table's entries copied to `dev` (the span
+    `pe.table_upload`)."""
+    with span("pe.table_upload"):
+        return _CardTable(*(_upload(a, dev) for a in (
+            table.h1_biased, table.h2, table.node, table.offset)),
+            table.max_dup, table.num_nodes, table.split_len,
+            table.num_entries, _upload(table.seq_lens, dev))
+
+
+def _empty_card(enc: EncodedTable, seq_lens: torch.Tensor) -> _CardTable:
+    z = seq_lens.new_zeros(0)
+    return _CardTable(z, z, z, z, 1, enc.num_nodes, enc.split_len, 0,
+                      seq_lens)
+
+
+def _read_back(vals: torch.Tensor) -> list:
+    """A few device integers as Python ints: one D2H, counted in
+    `pe.d2h_bytes`."""
+    count("pe.d2h_bytes", vals.nbytes)
+    return vals.tolist()
+
+
+def _card_payloads(card: _CardTable, node_bits: int) -> torch.Tensor:
+    """_build_sortfill_payloads' matrix of a device table, on its device:
+    int32 [M, min(max_dup, 16)], the padding's rows included."""
+    h1 = card.h1_biased
+    M = h1.shape[0]
+    D = min(card.max_dup, _SORTFILL_MAX_DUP)
+    # each entry's payload word, tag | h2's top 30 - node_bits bits |
+    # node (the arithmetic shift's sign bit lands under the tag), then D
+    # - 1 zero words: an entry past the table never matches
+    word = h1.new_zeros(M + D - 1)
+    torch.bitwise_and(card.h2, -(1 << (node_bits + 1)), out=word[:M])
+    word[:M].bitwise_right_shift_(1).bitwise_or_(card.node).bitwise_or_(_TAG)
+    h1 = torch.cat([h1, h1[:D - 1]]).unfold(0, D, 1)
+    return torch.where(h1 == h1[:, :1], word.unfold(0, D, 1), 0)
+
+
+def _card_bucket_index(card: _CardTable):
+    """_bucket_index of a device table, on its device: (starts, shift,
+    depth), the depth read back."""
+    m = card.num_entries
+    if not m:
+        return card.h1_biased.new_zeros(2), 32, 1
+    bits = max(10, min(26, int(np.ceil(np.log2(2 * m)))))
+    h1 = card.h1_biased[:m].to(torch.int64) + 2**31  # h1 as unsigned
+    counts = torch.zeros(1 << bits, dtype=torch.int64, device=h1.device)
+    counts.index_add_(0, h1 >> (32 - bits), torch.ones_like(h1))
+    starts = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    depth, = _read_back(counts.max().reshape(1))
+    return starts.to(torch.int32), 32 - bits, max(depth, 1)
+
+
+def _device_table(card: _CardTable, probe: str) -> _DeviceTable:
+    """What `probe` reads of a device table (the span `pe.table_upload`):
+    the sortfill payloads, or the classic probe's record and, for the
+    lookup, its bucket index, made on the table's device."""
+    with span("pe.table_upload"):
+        tab = _DeviceTable(probe, card.h1_biased, card.seq_lens,
+                           card.split_len, card.num_nodes, card.max_dup)
         if probe == "sortfill":
-            tab.node_bits = _sortfill_node_bits(table.num_nodes)
-            tab.pays = _upload(_build_sortfill_payloads(table, tab.node_bits),
-                               dev)
+            tab.node_bits = _sortfill_node_bits(card.num_nodes)
+            tab.pays = _card_payloads(card, tab.node_bits)
             tab.depth = tab.pays.shape[1]
             return tab
-        tab.rec = ck.table_record(tab.h1, _upload(table.h2, dev),
-                                  _upload(table.node, dev))
+        tab.rec = ck.table_record(tab.h1, card.h2, card.node)
         if probe == "lookup":
-            starts, tab.shift, tab.scan_depth = _bucket_index(table)
-            tab.bstarts = _upload(starts, dev)
+            tab.bstarts, tab.shift, tab.scan_depth = _card_bucket_index(card)
         return tab
 
 
@@ -1040,10 +1228,10 @@ def dense_budget_rows(num_nodes: int) -> int:
 _PROBE_MODES = ("sort", "sortfill", "sortjoin", "lookup", "searchsorted")
 
 
-def _route_probe(probe_mode: str, sparse: bool, table: KmerTable,
+def _route_probe(probe_mode: str, sparse: bool, table: _CardTable,
                  logger: logging.Logger) -> str:
-    """The JAX engine's probe choice, a function of the table alone (so
-    every device picks the same probe): "sortfill" (the packed probe),
+    """The JAX engine's probe choice, a function of the whole table alone
+    (so every device picks the same probe): "sortfill" (the packed probe),
     "join" or "lookup". The packed probe needs node ids of at most 18
     bits and duplicate runs of at most 16; the sparse engine takes it only
     for "sort" (JAX infer_pe_links and _infer_pe_links_sparse).
@@ -1096,9 +1284,9 @@ class _Seams:
       rows: the batches this rank runs (`rows`; `n_data` ranks split
         each batch);
       a table shard's partials: the part of the table this rank probes
-        (`shard`), a batch's dense stats (`stats`) or sparse saturated
-        lists (`lists`) made whole, and whether this rank counts the
-        links (`counts`);
+        (`shard`, on the device), a batch's dense stats (`stats`) or
+        sparse saturated lists (`lists`) made whole, and whether this
+        rank counts the links (`counts`);
       the end of a pass: the dense accumulators before the drain
         (`end_dense`), a sparse pass's outcome (`end_pass`) and the
         final COO (`merge`)."""
@@ -1109,8 +1297,8 @@ class _Seams:
              force_bytes: bool = False):
         return _wire_batches(reads, batch_size, force_bytes)
 
-    def shard(self, table: KmerTable) -> KmerTable:
-        return table
+    def shard(self, card: _CardTable) -> _CardTable:
+        return card
 
     def stats(self, cnt, kmin):
         return cnt, kmin
@@ -1137,7 +1325,7 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
                    batch_size: int = 16384,
                    probe_mode: str = "sort",
                    stats_mode: str = "auto",
-                   table: Optional[KmerTable] = None,
+                   table=None,
                    logger: logging.Logger = None,
                    device="cuda"):
     """End-to-end PE-link inference for pre-loaded reads, on `device`
@@ -1155,14 +1343,18 @@ def infer_pe_links(ids: Sequence[str], seqs: Sequence[str],
     (the dense engine warns and joins beyond the packing; the sparse
     engine always joins); "sortjoin" forces the join, and "searchsorted"
     is its alias; "lookup" probes a bucket index of the table, built for
-    this call."""
+    this call.
+
+    `table`: build_kmer_table(seqs, k + 1), built on the device by this
+    call, or a host-built KmerTable (parallel/mesh.build_table_auto's
+    sequence-parallel build), copied to it; None encodes `seqs` here."""
     return _engine(ids, seqs, reads, kmer_size, batch_size, probe_mode,
                    stats_mode, table, logger or _LOG, resolve_device(device))
 
 
 def _engine(ids, seqs, reads: ReadPairBatch, kmer_size: int,
             batch_size: int, probe_mode: str, stats_mode: str,
-            table: Optional[KmerTable], logger: logging.Logger, dev,
+            table, logger: logging.Logger, dev,
             seams: _Seams = _ONE, cap: int = 16, cap_c: int = 32,
             coo_slots: Optional[int] = None):
     """The engine driver, infer_pe_links' on the resolved device `dev`,
@@ -1178,9 +1370,12 @@ def _engine(ids, seqs, reads: ReadPairBatch, kmer_size: int,
     elif table.split_len != split_len:
         raise ValueError(f"prebuilt table has split_len {table.split_len},"
                          f" k={kmer_size} needs {split_len}")
-    N = table.num_nodes
+    count("pe.table_card_builds", 0)
+    card = (_upload_table(table, dev) if isinstance(table, KmerTable)
+            else _card_table(table, dev))
+    N = card.num_nodes
     logger.info("kmer table: %d entries, max_dup=%d, %d nodes",
-                table.num_entries, table.max_dup, N)
+                card.num_entries, card.max_dup, N)
 
     # don't pad small datasets up to a huge batch; "auto" routes the
     # clamped batch
@@ -1194,7 +1389,7 @@ def _engine(ids, seqs, reads: ReadPairBatch, kmer_size: int,
             batch_size = clamped
     sparse = _is_sparse(stats_mode, batch_size, N)
 
-    if reads.num_pairs == 0 or table.num_entries == 0:
+    if reads.num_pairs == 0 or card.num_entries == 0:
         return _empty_result(ids, reads, N)
 
     # the exact-integer saturation test needs count*rlen < 2^31, i.e.
@@ -1208,11 +1403,11 @@ def _engine(ids, seqs, reads: ReadPairBatch, kmer_size: int,
             "saturation range (~46 kb); this engine targets paired-end "
             "short reads")
 
-    tab = _device_table(seams.shard(table),
-                        _route_probe(probe_mode, sparse, table, logger), dev)
+    tab = _device_table(seams.shard(card),
+                        _route_probe(probe_mode, sparse, card, logger))
     if sparse:
-        return _infer_pe_links_sparse(ids, table, tab, reads, batch_size,
-                                      logger, cap, cap_c, coo_slots, seams)
+        return _infer_pe_links_sparse(ids, tab, reads, batch_size, logger,
+                                      cap, cap_c, coo_slots, seams)
     acc_nm = torch.zeros((N, N), dtype=torch.int64, device=dev)
     acc_sm = torch.zeros((N, N), dtype=torch.int64, device=dev)
 
@@ -1276,7 +1471,7 @@ def _drain_dense(*accs: torch.Tensor) -> tuple:
     return out
 
 
-def _infer_pe_links_sparse(ids, table: KmerTable, tab: _DeviceTable,
+def _infer_pe_links_sparse(ids, tab: _DeviceTable,
                            reads: ReadPairBatch, batch_size: int,
                            logger: logging.Logger, cap: int = 16,
                            cap_c: int = 32,
@@ -1293,12 +1488,12 @@ def _infer_pe_links_sparse(ids, table: KmerTable, tab: _DeviceTable,
     dev = tab.h1.device
     T = max(reads.fwd_codes.shape[1], reads.rve_codes.shape[1])
     batch_size = _sparse_batch_clamp(batch_size, T, tab.split_len,
-                                     table.max_dup, logger, seams.n_data)
+                                     tab.depth, logger, seams.n_data)
     tables = ck.CooTables(N, dev, coo_slots) if seams.counts else None
 
     def one_pass(cap, cap_c):
         logger.info("sparse PE stats path: N=%d, cap=%d, depth=%d, "
-                    "batch=%d", N, cap, table.max_dup, batch_size)
+                    "batch=%d", N, cap, tab.depth, batch_size)
 
         def core(kind, payload):
             feed = _upload_batch(kind, payload, dev)

@@ -59,13 +59,14 @@ from vstrains_tpu_torch.core.fastq import ReadPairBatch
 from vstrains_tpu_torch.device import resolve_device
 from vstrains_tpu_torch.ops import cuda_kernels as ck
 from vstrains_tpu_torch.ops.pe_infer import (
-    _INF, _TABLE_FULL, KmerTable, PEResult, PESparseResult, _DeviceTable,
-    _Seams, _build_sortfill_payloads, _empty_result, _engine, _slot_planes,
-    _sparse_merge_sat_tail, _sparse_run_stats_compact, _wire_batches,
-    build_kmer_table)
+    _INF, _TABLE_FULL, PEResult, PESparseResult, _CardTable,
+    _DeviceTable, _Seams, _build_kmer_table, _card_payloads, _empty_result,
+    _engine, _slot_planes, _sparse_merge_sat_tail, _sparse_run_stats_compact,
+    _wire_batches, build_kmer_table)
 from vstrains_tpu_torch.parallel.collectives import (all_gather_cat,
                                                      all_gather_ragged,
                                                      all_reduce, world_size)
+from vstrains_tpu_torch.utils.tracing import span
 
 _LOG = logging.getLogger(__name__)
 
@@ -125,14 +126,14 @@ def make_mesh(data: int = None, model: int = 1, device="cuda") -> Mesh:
 
 
 # --------------------------------------------------------------------------
-# table sharding (TP), host numpy
+# table sharding (TP), on the device
 # --------------------------------------------------------------------------
 
 @dataclass
 class ShardedTable:
-    """KmerTable split into `n_shards` contiguous sorted-hash ranges, padded
-    to equal length with the table's sentinels (h1 INT32_MAX, h2 -1,
-    node 0)."""
+    """A device table split into `n_shards` contiguous sorted-hash ranges,
+    padded to equal length with the table's sentinels (h1 INT32_MAX, h2
+    -1, node 0), as host arrays (the JAX package's shard_table)."""
     h1_biased: np.ndarray  # int32 [S, M']
     h2: np.ndarray         # int32 [S, M']
     node: np.ndarray       # int32 [S, M']
@@ -143,45 +144,42 @@ class ShardedTable:
     seq_lens: np.ndarray
 
 
-def _shard(table: KmerTable, n_shards: int, s: int) -> KmerTable:
-    """Shard `s` of the table's real entries as a KmerTable of its own:
-    ceil(M / n_shards) entries, the last shard padded with the table's
-    sentinels, the global max_dup (so every shard's slot planes have one
-    shape). A duplicate run that straddles a shard boundary restarts its
-    rank chain in the next shard; the (sum, min) merge joins the split
-    runs exactly."""
-    m = table.num_entries
+def _shard(card: _CardTable, n_shards: int, s: int) -> _CardTable:
+    """Shard `s` of the table's real entries as a device table of its
+    own: ceil(M / n_shards) entries, the last shard padded with the
+    table's sentinels, the global max_dup (so every shard's slot planes
+    have one shape). A duplicate run that straddles a shard boundary
+    restarts its rank chain in the next shard; the (sum, min) merge joins
+    the split runs exactly."""
+    m = card.num_entries
     per = -(-m // n_shards) if m else 1
     lo = min(s * per, m)
     n = min(lo + per, m) - lo
-
-    def part(a, fill):
-        out = np.full(per, fill, dtype=np.int32)
-        out[:n] = a[lo:lo + n]
-        return out
-
-    return KmerTable(part(table.h1_biased, _INF), part(table.h2, -1),
-                     part(table.node, 0), part(table.offset, 0),
-                     table.max_dup, table.num_nodes, table.split_len,
-                     table.seq_lens, n)
+    out = card.h1_biased.new_zeros((4, per))
+    out[0], out[1] = int(_INF), -1
+    for row, a in zip(out, (card.h1_biased, card.h2, card.node,
+                            card.offset)):
+        row[:n] = a[lo:lo + n]
+    return _CardTable(*out, card.max_dup, card.num_nodes, card.split_len, n,
+                      card.seq_lens)
 
 
-def shard_table(table: KmerTable, n_shards: int) -> ShardedTable:
-    parts = [_shard(table, n_shards, s) for s in range(n_shards)]
-    return ShardedTable(*(np.stack([getattr(p, f) for p in parts])
+def shard_table(card: _CardTable, n_shards: int) -> ShardedTable:
+    parts = [_shard(card, n_shards, s) for s in range(n_shards)]
+    return ShardedTable(*(torch.stack([getattr(p, f) for p in parts])
+                          .cpu().numpy()
                           for f in ("h1_biased", "h2", "node", "offset")),
-                        table.max_dup, table.num_nodes, table.split_len,
-                        table.seq_lens)
+                        card.max_dup, card.num_nodes, card.split_len,
+                        card.seq_lens.cpu().numpy())
 
 
-def shard_sortfill_payloads(table: KmerTable, n_shards: int,
+def shard_sortfill_payloads(card: _CardTable, n_shards: int,
                             node_bits: int) -> np.ndarray:
     """Per-table-shard sortfill payload matrices, stacked to (S, M', D):
     each shard's payloads are built from its own slice, D from the global
     duplicate bound."""
-    return np.stack([_build_sortfill_payloads(_shard(table, n_shards, s),
-                                              node_bits)
-                     for s in range(n_shards)])
+    return torch.stack([_card_payloads(_shard(card, n_shards, s), node_bits)
+                        for s in range(n_shards)]).cpu().numpy()
 
 
 def _rank_batches(reads: ReadPairBatch, batch_size: int, mesh: Mesh,
@@ -236,10 +234,10 @@ class _RankSeams(_Seams):
     def rows(self, reads, batch_size, force_bytes=False):
         return _rank_batches(reads, batch_size, self.mesh, force_bytes)
 
-    def shard(self, table):
+    def shard(self, card):
         m = self.mesh
-        return (table if m.n_model == 1
-                else _shard(table, m.n_model, m.model_rank))
+        return (card if m.n_model == 1
+                else _shard(card, m.n_model, m.model_rank))
 
     def stats(self, cnt, kmin):
         m = self.mesh
@@ -307,7 +305,7 @@ def infer_pe_links_sparse_sharded(ids: Sequence[str],
                                   logger: logging.Logger = None,
                                   cap: int = 16,
                                   cap_c: Optional[int] = None,
-                                  table: Optional[KmerTable] = None,
+                                  table=None,
                                   coo_slots: Optional[int] = None
                                   ) -> PESparseResult:
     """Multi-GPU large-N PE inference: the sparse COO engine, DP over
@@ -406,14 +404,16 @@ SP_MIN_LEN = 8192  # bp: nodes this long hash sequence-parallel
 
 
 def build_table_auto(seqs: Sequence[str], split_len: int, device,
-                     logger: logging.Logger = None) -> KmerTable:
+                     logger: logging.Logger = None):
     """The pipeline's table construction, as the JAX package's
     build_table_auto routes it: in a torch.distributed world of more than
     one rank, nodes of at least SP_MIN_LEN bp hash through
     sp_window_hashes over every rank (a (world, 1) mesh on `device`) and
-    the others through the host (C++) build; with one process, or no node
-    that long, the host build alone. Every rank must call it; a failure
-    of a collective or a kernel raises."""
+    the others through the host (C++) build, a host KmerTable (in the
+    span `pe.table_build`); with one process, or no node that long, the
+    sequences encoded for the engine's device build (build_kmer_table).
+    Every rank must call it; a failure of a collective or a kernel
+    raises."""
     logger = logger or _LOG
     if (world_size() == 1
             or max((len(s) for s in seqs), default=0) < SP_MIN_LEN):
@@ -421,7 +421,9 @@ def build_table_auto(seqs: Sequence[str], split_len: int, device,
     mesh = make_mesh(model=1, device=device)
     logger.info("SP table build over %d rank(s) for nodes >= %d bp",
                 mesh.n_data, SP_MIN_LEN)
-    return build_kmer_table(
-        seqs, split_len,
-        long_hash=(SP_MIN_LEN,
-                   lambda codes: sp_window_hashes(codes, split_len, mesh)))
+    with span("pe.table_build"):
+        return _build_kmer_table(
+            seqs, split_len,
+            long_hash=(SP_MIN_LEN,
+                       lambda codes: sp_window_hashes(codes, split_len,
+                                                      mesh)))

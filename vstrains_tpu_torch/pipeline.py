@@ -231,8 +231,9 @@ def _run(args, logger: logging.Logger, device: torch.device, resume_from,
             traced_from = tracing.totals()
             ids = list(view1.nodes.keys())
             seqs = [view1.nodes[i].seq for i in ids]
-            # one process: the host table build overlaps FASTQ loading on
-            # a background thread. In a world of several ranks the build
+            # one process: the table's encode overlaps FASTQ loading on a
+            # background thread (the engine builds its entries on the
+            # device). In a world of several ranks the build
             # (its long nodes hashed sequence-parallel: collectives and
             # kernels on every rank) runs here, so a failure raises.
             table_box = {}
